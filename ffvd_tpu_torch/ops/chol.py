@@ -1,0 +1,138 @@
+"""Batched Cholesky / triangular-solve helpers with PSD-jitter escalation.
+
+Counterpart of ``ffvd_tpu/ops/chol.py``.  ``torch.linalg.cholesky`` raises on
+a non-PD block where JAX's returns NaN, so the factorisation here is
+``torch.linalg.cholesky_ex``: a batch element is "bad" when its ``info`` is
+non-zero or its factor is non-finite, and only then is it refactorised with
+an escalated jitter.  Checking for a bad element reads one flag back to the
+host; the healthy path pays one factorisation.
+
+The JAX package's ``blocked_tri_inv`` works around the TPU's sequential
+triangular solve and is never taken at M < 256; here the triangular inverse
+is one ``torch.linalg.solve_triangular``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _phi(x: torch.Tensor) -> torch.Tensor:
+    """tril with halved diagonal — the Φ of the Cholesky differential
+    (Murray 2016, arXiv:1602.07527)."""
+    eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+    return torch.tril(x) / (1.0 + eye)
+
+
+def _per_bad(l: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
+    """Per batch element: did the factorisation fail?"""
+    return (info != 0) | ~torch.isfinite(l).all(dim=-1).all(dim=-1)
+
+
+def _psd_cholesky_impl(mat: torch.Tensor, retry_jitter: float) -> torch.Tensor:
+    """Factorise with up to two escalated-jitter retries, per batch element:
+    first the reference's ABSOLUTE 1e-4 jitter (conditionals_multi_output.py:
+    30), then 1e-4·max(mean diag, 1), which restores positive definiteness
+    at any diagonal scale.  An element that fails all three comes back NaN,
+    as a failed JAX Cholesky does."""
+    l, info = torch.linalg.cholesky_ex(mat)
+    bad = _per_bad(l, info)
+    if not bool(bad.any()):
+        return l
+    eye = torch.eye(mat.shape[-1], dtype=mat.dtype, device=mat.device)
+    l1, info1 = torch.linalg.cholesky_ex(mat + retry_jitter * eye)
+    l = torch.where(bad[..., None, None], l1, l)
+    bad = bad & _per_bad(l1, info1)
+    if bool(bad.any()):
+        diag_scale = torch.diagonal(mat, dim1=-2, dim2=-1).mean(dim=-1)
+        rel = 1e-4 * torch.clamp(diag_scale, min=1.0)
+        l2, info2 = torch.linalg.cholesky_ex(mat + rel[..., None, None] * eye)
+        l = torch.where(bad[..., None, None], l2, l)
+        bad = bad & _per_bad(l2, info2)
+        l = torch.where(bad[..., None, None], torch.full_like(l, torch.nan), l)
+    return l
+
+
+def _tri_inv(l: torch.Tensor) -> torch.Tensor:
+    eye = torch.eye(l.shape[-1], dtype=l.dtype, device=l.device)
+    return torch.linalg.solve_triangular(l, eye.expand(l.shape), upper=False)
+
+
+class _PSDCholesky(torch.autograd.Function):
+    """Forward: jitter-escalating factorisation.  Backward: the standard
+    Cholesky pullback Σ̄ = L⁻ᵀ Φ(Lᵀ L̄) L⁻¹ from the saved factor, so no NaN
+    of a failed first attempt can reach a gradient."""
+
+    @staticmethod
+    def forward(ctx, mat, retry_jitter):
+        l = _psd_cholesky_impl(mat, retry_jitter)
+        ctx.save_for_backward(l)
+        return l
+
+    @staticmethod
+    def backward(ctx, lbar):
+        (l,) = ctx.saved_tensors
+        p = _phi(l.mT @ lbar)
+        lt = l.mT
+        tmp = torch.linalg.solve_triangular(lt, p, upper=True)       # L⁻ᵀ P
+        sigma_bar = torch.linalg.solve_triangular(
+            lt, tmp.mT, upper=True).mT                                 # ·L⁻¹
+        return 0.5 * (sigma_bar + sigma_bar.mT), None
+
+
+def psd_cholesky(mat: torch.Tensor, retry_jitter: float = 1e-4) -> torch.Tensor:
+    """Cholesky of a batch of PSD matrices ``(..., M, M)`` with escalated
+    jitter retries."""
+    return _PSDCholesky.apply(mat, retry_jitter)
+
+
+class _CholAndInv(torch.autograd.Function):
+    """(L, L⁻¹) with a backward made only of matmuls:
+
+        d(L⁻¹) = −L⁻¹ dL L⁻¹         ⇒  L̄_eff = L̄ − L⁻ᵀ (L⁻¹)‾ L⁻ᵀ
+        Σ̄ = L⁻ᵀ Φ(Lᵀ L̄_eff) L⁻¹      (with the saved explicit L⁻¹)
+
+    Φ(LᵀX) reads only tril(X), so upper-triangle cotangent junk is ignored.
+    """
+
+    @staticmethod
+    def forward(ctx, mat, retry_jitter):
+        l = _psd_cholesky_impl(mat, retry_jitter)
+        l_inv = _tri_inv(l)
+        ctx.save_for_backward(l, l_inv)
+        return l, l_inv
+
+    @staticmethod
+    def backward(ctx, lbar, linvbar):
+        l, l_inv = ctx.saved_tensors
+        l_invT = l_inv.mT
+        lbar_eff = lbar - l_invT @ linvbar @ l_invT
+        p = _phi(l.mT @ lbar_eff)
+        sigma_bar = l_invT @ p @ l_inv
+        return 0.5 * (sigma_bar + sigma_bar.mT), None
+
+
+def chol_and_inv(mat: torch.Tensor, retry_jitter: float = 1e-4):
+    """(L, L⁻¹) of a batch of PSD matrices with jitter-escalating retries."""
+    return _CholAndInv.apply(mat, retry_jitter)
+
+
+def tri_solve(chol: torch.Tensor, rhs: torch.Tensor, *, lower: bool = True,
+              trans: bool = False) -> torch.Tensor:
+    """Batched triangular solve: op(chol) X = rhs, op = transpose if
+    ``trans``.  chol: (..., M, M), rhs: (..., M, K)."""
+    if trans:
+        return torch.linalg.solve_triangular(chol.mT, rhs, upper=lower)
+    return torch.linalg.solve_triangular(chol, rhs, upper=not lower)
+
+
+def chol_logdet(chol: torch.Tensor) -> torch.Tensor:
+    """log|A| from chol(A): 2 Σ log diag(L).  (..., M, M) → (...)."""
+    return 2.0 * torch.sum(
+        torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
+
+
+def chol_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """A⁻¹ rhs from chol(A) via two triangular solves."""
+    y = tri_solve(chol, rhs)
+    return tri_solve(chol, y, trans=True)
