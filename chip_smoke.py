@@ -10,13 +10,16 @@ that each print one JSON line:
 2. the rollout kernel against its plain PyTorch version at the main shapes
    (ballbeam warm start and its collapsed q(U): S=10, T=500, D=4, M=100,
    Din=5), with and without q_sqrt, fp64 and fp32, shared noise and zero
-   noise;
+   noise; then, on random inputs with shared noise, the launch plan's other
+   branches: factors read from global memory (fp64, M=320) and a cluster of
+   six CTAs (D=6);
 3. the in-kernel generator: moments of 2²⁰ draws, and the standardised
-   step-1 residuals of a 65,536-sample rollout;
+   step-1 residuals of a 65,536-sample rollout (with the phase's seconds);
 4. the main path in fp32: ``FFVDModel(FFVDConfig("ballbeam", case=4))`` on
    cuda, ``fit()`` for the protocol's 4000 iterations, ``evaluate()``;
 5. 200 fp64 training iterations on cuda against the same on the CPU;
-6. kernel timing with CUDA events, and one ``{"kernels": [...]}`` line.
+6. kernel timing with CUDA events at S=10 and S=64, with the launch plan,
+   and one ``{"kernels": [...]}`` line.
 
 The last lines are the card's name and power limit, the kernels line, and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  Without
@@ -109,6 +112,29 @@ def main_shape_inputs(torch, dtype):
     return out
 
 
+def random_inputs(torch, dtype, d, m, t_len, seed=0):
+    """Rollout inputs at other shapes than the main path's, from a seed:
+    SE-ARD hypers, Z, Lm⁻¹ (jitter 1e-2 keeps it well conditioned), U, an
+    upper q_sqrt, Q, x0 and one control column."""
+    from ffvd_tpu_torch.model.conditionals import kernel_precal
+    from ffvd_tpu_torch.ops.kernels import KernelParams
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *sh: torch.randn(*sh, generator=g, dtype=torch.float64)
+    uni = lambda *sh: torch.rand(*sh, generator=g, dtype=torch.float64)
+    kp = KernelParams(torch.log(uni(d) + 0.2), torch.log(uni(d, d + 1) + 0.5))
+    z = rnd(m, d + 1)
+    pre = kernel_precal("SquaredExponential", kp, z, jitter=1e-2)
+    inp = dict(z=z, lm_inv=pre.lm_inv, u_val=0.3 * rnd(m, d),
+               q_sqrt=torch.triu(0.1 * rnd(d, m, m)),
+               q=0.05 + 0.1 * uni(d), x0=0.5 * rnd(d),
+               controls=rnd(t_len, 1))
+    cast = lambda t: t.to("cuda", dtype).contiguous()
+    out = {k: cast(v) for k, v in inp.items()}
+    out["kparams"] = KernelParams(cast(kp.log_variance),
+                                  cast(kp.log_lengthscales))
+    return out
+
+
 def call(fn, inp, q_sqrt=True, **kw):
     return fn(inp["kparams"], inp["z"], inp["lm_inv"], inp["u_val"],
               inp["q_sqrt"] if q_sqrt else None, inp["q"], inp["x0"],
@@ -156,15 +182,44 @@ def phase_kernel_vs_plain(torch, ro):
                 cases.append({"dtype": name, "q_sqrt": with_q,
                               "noise": noise_kind, "max_abs_err": err,
                               "max_abs_err_all_t": err_all, "ok": ok,
-                              "finite": finite})
+                              "finite": finite,
+                              "plan": ro.rollout.last_plan._asdict()})
                 check(ok and finite, f"kernel vs plain: {cases[-1]}")
+    # The plan's other branches, on random inputs with shared noise:
+    # global-memory factors (fp64 M=320) and six CTAs a cluster (D=6).
+    other = []
+    for name, dtype, d, m, t_len, want in (
+            ("fp64", torch.float64, 4, 320, 20, dict(resident=False)),
+            ("fp64", torch.float64, 6, 100, 60, dict(cluster=6)),
+            ("fp32", torch.float32, 6, 100, 60, dict(cluster=6))):
+        inp = random_inputs(torch, dtype, d, m, t_len)
+        noise = 0.1 * torch.randn((S, t_len, d), generator=gen,
+                                  dtype=torch.float64).to("cuda", dtype)
+        xk, vk = call(ro.rollout, inp, noise=noise)
+        plan = ro.rollout.last_plan
+        xr, vr = call(ro.rollout_reference, inp, noise=noise)
+        torch.cuda.synchronize()
+        h = t_len if name == "fp64" else HORIZON
+        tol = (dict(rtol=1e-9, atol=1e-12) if name == "fp64"
+               else dict(rtol=1e-4, atol=1e-5))
+        ok = (torch.allclose(xk[:, :h], xr[:, :h], **tol)
+              and torch.allclose(vk[:, :h], vr[:, :h], **tol)
+              and all(getattr(plan, k) == v for k, v in want.items()))
+        err = max(float((xk[:, :h] - xr[:, :h]).abs().max()),
+                  float((vk[:, :h] - vr[:, :h]).abs().max()))
+        worst[name] = max(worst[name], err)
+        other.append({"dtype": name, "S": S, "T": t_len, "D": d, "M": m,
+                      "Din": d + 1, "steps_held": h, "max_abs_err": err,
+                      "ok": ok, "plan": plan._asdict()})
+        check(ok and bool(torch.isfinite(xk).all()),
+              f"kernel vs plain: {other[-1]}")
     emit("kernel_vs_plain", shapes={"S": S, "T": T, "D": 4, "M": 100,
                                     "Din": 5},
          tolerance={"fp64": "rtol 1e-9, atol 1e-12, all T",
                     "fp32": "rtol 1e-4, atol 1e-5, first 30 steps"},
          note="fp32 all-T error is printed: a free-running fp32 recursion "
               "may drift over 500 steps",
-         cases=cases, worst=worst)
+         cases=cases, other_plans=other, worst=worst)
     return worst
 
 
@@ -183,6 +238,7 @@ def _check_moments(m, what):
 
 def phase_generator(torch, ro):
     """Phase 3: the in-kernel Philox + Box-Muller."""
+    t_phase = time.time()
     seed = 0x5EED_F00D_1234
     n = 1 << 20
     z = ro.ffvd_normals(seed, n)
@@ -197,9 +253,13 @@ def phase_generator(torch, ro):
     inp["controls"] = inp["controls"][:1].contiguous()
     big = 65536
     gen = torch.Generator().manual_seed(99)
+    torch.cuda.synchronize()
+    t_big = time.time()
     xn, vn = call(ro.rollout, inp, num_samples=big, generator=gen)
     x0, _ = call(ro.rollout, inp, num_samples=big,
                  noise=torch.zeros((big, 1, 4), device="cuda"))
+    torch.cuda.synchronize()
+    big_s = time.time() - t_big
     # The same generator state gives the same Philox key to the plain
     # version: its trajectories must match the kernel's.
     gen = torch.Generator().manual_seed(99)
@@ -213,7 +273,10 @@ def phase_generator(torch, ro):
     emit("generator", draws=n, moments=m_direct,
          max_abs_err_vs_plain_philox=stream_err,
          rollout={"samples": big, "moments": m_roll,
-                  "max_abs_err_vs_plain_philox": roll_err},
+                  "max_abs_err_vs_plain_philox": roll_err,
+                  "plan": ro.rollout.last_plan._asdict(),
+                  "two_kernel_rollouts_seconds": big_s},
+         seconds=time.time() - t_phase,
          checks="|mean|<0.01, std within 1%, P(|z|>2) within 10% of 4.55%")
 
 
@@ -315,8 +378,40 @@ def _time_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def _breakdown(torch, ro, inp):
+    """Kernel ms at the main shapes with one thing changed at a time, to
+    show what a step waits on: one sample (one cluster alone), no q_sqrt
+    (no second triangular product), noise given (no in-kernel Philox), one
+    step (fill and launch); and the fill alone at phase 3's shape (65,536
+    samples of one step), with its bytes moved into shared memory."""
+    gen = torch.Generator().manual_seed(11)
+    one_step = dict(inp, controls=inp["controls"][:1].contiguous())
+    noise = torch.zeros((S, T, 4), device="cuda", dtype=inp["z"].dtype)
+    big = 65536
+    ms = {
+        "s1": _time_ms(torch, lambda: call(ro.rollout, inp, generator=gen,
+                                           num_samples=1), 50),
+        "no_qsqrt": _time_ms(torch, lambda: call(ro.rollout, inp, False,
+                                                 generator=gen), 50),
+        "noise_given": _time_ms(torch, lambda: call(ro.rollout, inp,
+                                                    noise=noise), 50),
+        "t1": _time_ms(torch, lambda: call(ro.rollout, one_step,
+                                           generator=gen), 50),
+        "s65536_t1": _time_ms(torch, lambda: call(ro.rollout, one_step,
+                                                  generator=gen,
+                                                  num_samples=big), 10),
+    }
+    plan = ro.rollout.last_plan
+    m = inp["z"].shape[0]
+    fill = big * plan.cluster * m * (m + 1) * inp["z"].element_size()
+    return {"ms": ms, "s65536_t1_fill_bytes": fill,
+            "s65536_t1_fill_bytes_per_s": fill / (ms["s65536_t1"] * 1e-3)}
+
+
 def phase_timing(torch, ro):
-    """Phase 6: kernel and plain-version times at the main shapes."""
+    """Phase 6: kernel and plain-version times at the main shapes, the
+    kernel's time at S=64 beside them (64 clusters queue past 132 SMs), and
+    the launch plan."""
     out = {}
     gen = torch.Generator().manual_seed(7)
     for name, dtype in (("fp32", torch.float32), ("fp64", torch.float64)):
@@ -324,15 +419,28 @@ def phase_timing(torch, ro):
         launches = ro.rollout.launches
         k_ms = _time_ms(torch, lambda: call(ro.rollout, inp, generator=gen),
                         200)
+        plan = ro.rollout.last_plan
+        k64_ms = _time_ms(torch, lambda: call(ro.rollout, inp, generator=gen,
+                                              num_samples=64), 50)
         p_ms = _time_ms(torch, lambda: call(ro.rollout_reference, inp,
                                             generator=gen), 5)
+        breakdown = _breakdown(torch, ro, inp)
         ro.rollout.launches = launches   # timing launches are not the path's
         itemsize = 4 if dtype == torch.float32 else 8
         bound_ms, bound_by, flops, nbytes = _bound(
             name, S, T, 4, 100, 5, 1, itemsize, with_noise_input=False)
-        out[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-                     "bound_us": bound_ms * 1e3, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-                     "kernel_launches_timed": 200}
+        bound64_ms = _bound(name, 64, T, 4, 100, 5, 1, itemsize,
+                            with_noise_input=False)[0]
+        out[name] = {"ms": k_ms, "us_per_step": k_ms * 1e3 / T,
+                     "breakdown": breakdown,
+                     "plain_ms": p_ms, "bound_ms": bound_ms,
+                     "bound_us": bound_ms * 1e3, "bound_by": bound_by,
+                     "flops": flops, "bytes": nbytes,
+                     "kernel_launches_timed": 200,
+                     "s64": {"ms": k64_ms, "us_per_step": k64_ms * 1e3 / T,
+                             "bound_ms": bound64_ms,
+                             "kernel_launches_timed": 50},
+                     "plan": plan._asdict()}
     emit("timing", shapes={"S": S, "T": T, "D": 4, "M": 100, "Din": 5},
          noise="in-kernel Philox", library="no single PyTorch call computes "
          "this rollout; library_ms is null", **out)
@@ -379,10 +487,10 @@ def main() -> int:
         "launches": launches, "max_abs_err": worst["fp32"],
         "ms": f32["ms"], "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "plan": f32["plan"],
         "fp64": {"ms": f64["ms"], "plain_ms": f64["plain_ms"],
                  "bound_ms": f64["bound_ms"], "bound_by": f64["bound_by"],
-                 "max_abs_err": worst["fp64"]},
+                 "max_abs_err": worst["fp64"], "plan": f64["plan"]},
     }]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -14,12 +14,18 @@ seed that the wrapper draws from the caller's ``torch.Generator``.  The
 plain version carries its own Philox (``philox4x32``) and Box-Muller
 (``bits_to_normal``), so the kernel and the plain version give the same
 trajectories for the same generator state.
+
+The kernel runs one thread-block cluster per sample and keeps each latent
+dim's triangular factors, packed by lower rows (``pack_lower_rows``), in
+its CTA's shared memory when they fit.  ``rollout_plan`` makes that choice
+and fixes the launch's shape; the launcher checks the plan on the card and
+the wrapper raises when it cannot be scheduled.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -169,11 +175,74 @@ def rollout_reference(kparams: KernelParams, z: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel
+# The CUDA kernel: launch plan, packed factors, wrapper
 # ---------------------------------------------------------------------------
+
+CLUSTER_MAX = 8      # the portable thread-block cluster size
+ROW_THREADS = 4      # threads per factor row (kRowThreads in csrc/rollout.cu)
+
+
+class RolloutPlan(NamedTuple):
+    cluster: int         # C = min(D, 8) CTAs per sample; CTA r owns r, r+C, ...
+    dims_per_cta: int    # the most dims one CTA owns, ⌈D / C⌉
+    threads: int         # per CTA
+    smem_bytes: int      # dynamic shared memory per CTA
+    resident: bool       # the owned dims' packed factors in shared memory
+
+
+def rollout_plan(D: int, M: int, Din: int, itemsize: int, smem_optin: int,
+                 max_threads: int = 1024) -> RolloutPlan:
+    """How the kernel is launched at these shapes: one cluster of
+    C = min(D, 8) CTAs per sample, ROW_THREADS threads per owned inducing
+    row (up to ``max_threads``; the kernel loops over the rest), and the
+    owned dims' packed σ²Lm⁻¹ and q_sqrtᵀ in shared memory when they fit in
+    ``smem_optin`` bytes beside the working arrays, else read from global
+    memory.  The sizes mirror ``Layout`` in csrc/rollout.cu."""
+    cluster = min(D, CLUSTER_MAX)
+    g = -(-D // cluster)
+    work = g * M * (Din + 6) + g * (Din + 3) + 2 * D
+    factors = 2 * g * (M * (M + 1) // 2)
+    resident = (work + factors) * itemsize <= smem_optin
+    threads = min(-(-g * M * ROW_THREADS // 32) * 32, max_threads // 32 * 32)
+    smem = (work + (factors if resident else 0)) * itemsize
+    return RolloutPlan(cluster, g, threads, smem, resident)
+
+
+def pack_lower_rows(a: torch.Tensor) -> torch.Tensor:
+    """(..., M, M) → (..., M(M+1)/2): row m of the lower triangle, entries
+    0..m, starting at m(m+1)/2."""
+    m = a.shape[-1]
+    rows, cols = torch.tril_indices(m, m, device=a.device)
+    return a[..., rows, cols].contiguous()
+
+
+def kernel_inputs(kparams: KernelParams, z, lm_inv, u_val, q_sqrt, q, x0,
+                  controls, num_samples: int):
+    """The kernel's input arrays before the noise, in its argument order:
+    x0 per sample, Z/ℓ, 1/ℓ, σ², σ²Lm⁻¹ packed by lower rows, U, Q, the
+    controls (None when U = 0) and q_sqrtᵀ packed by lower rows (row k is
+    column k of the upper q_sqrt) or None."""
+    zs, ils, kvar, lminv, qsq = _prepare(kparams, z, lm_inv, q_sqrt)
+    return {
+        "x0": x0[None, :].expand(num_samples, x0.shape[0]).contiguous(),
+        "zs": zs.contiguous(), "ils": ils.contiguous(),
+        "kvar": kvar.contiguous(), "lp": pack_lower_rows(lminv),
+        "u_val": u_val.contiguous(), "q": q.contiguous(),
+        "controls": controls if controls.shape[1] > 0 else None,
+        "qp": None if qsq is None else pack_lower_rows(qsq.mT),
+    }
+
 
 _ptr = ctypes.c_void_p
 _lib = None
+_limits = {}
+_LAUNCH_ERRORS = {
+    -1: "the plan's block size is not a warp multiple or exceeds the "
+        "kernel's limit",
+    -2: "the plan's shared memory is below the kernel's layout or above the "
+        "opt-in",
+    -3: "the plan's cluster shape is invalid for D or cannot be scheduled",
+}
 
 
 def _library() -> ctypes.CDLL:
@@ -182,14 +251,32 @@ def _library() -> ctypes.CDLL:
         from ffvd_tpu_torch.utils.cuda_build import load
         lib = load("rollout")
         for fn in (lib.ffvd_rollout_f32, lib.ffvd_rollout_f64):
-            fn.argtypes = [_ptr] * 12 + [ctypes.c_int] * 5 + [ctypes.c_uint64,
-                                                              _ptr]
+            fn.argtypes = [_ptr] * 12 + [ctypes.c_int] * 10 + [ctypes.c_uint64,
+                                                               _ptr]
             fn.restype = ctypes.c_int
+        lib.ffvd_rollout_limits.argtypes = [ctypes.c_int, _ptr, _ptr]
+        lib.ffvd_rollout_limits.restype = ctypes.c_int
         lib.ffvd_normals.argtypes = [ctypes.c_uint64, _ptr, ctypes.c_longlong,
                                      _ptr]
         lib.ffvd_normals.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def kernel_limits(device, itemsize: int) -> Tuple[int, int]:
+    """(max_threads, smem_optin) of the kernel on ``device`` for float32
+    (itemsize 4) or float64 (8), looked up once per device."""
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        key = (torch.cuda.current_device(), itemsize)
+        if key not in _limits:
+            threads, optin = ctypes.c_int(), ctypes.c_int()
+            err = _library().ffvd_rollout_limits(
+                itemsize, ctypes.addressof(threads), ctypes.addressof(optin))
+            if err != 0:
+                raise RuntimeError(f"rollout kernel limits: CUDA error {err}")
+            _limits[key] = (threads.value, optin.value)
+    return _limits[key]
 
 
 def _kernel_arg(name: str, t: Optional[torch.Tensor]):
@@ -213,7 +300,8 @@ def rollout(kparams: KernelParams, z: torch.Tensor, lm_inv: torch.Tensor,
     lower triangular; u_val (M, D); q_sqrt (D, M, M) upper triangular or
     None; q (D,); x0 (D,); controls (T, U), U may be 0; noise (S, T, D) or
     None.  Returns (xs, var_tot), each (S, T, D), var_tot clamped at 0.
-    CUDA tensors launch the kernel (float32 or float64); CPU tensors run
+    CUDA tensors launch the kernel (float32 or float64) as ``rollout_plan``
+    says, and record the plan in ``rollout.last_plan``; CPU tensors run
     ``rollout_reference``."""
     if z.device.type == "cpu":
         return rollout_reference(kparams, z, lm_inv, u_val, q_sqrt, q, x0,
@@ -226,20 +314,15 @@ def rollout(kparams: KernelParams, z: torch.Tensor, lm_inv: torch.Tensor,
     _check_inputs(z, lm_inv, u_val, q_sqrt, q, x0, controls, num_samples,
                   noise)
     dtype, device = z.dtype, z.device
-    zs, ils, kvar, lminv, qsq = _prepare(kparams, z, lm_inv, q_sqrt)
     s, d, m = num_samples, x0.shape[0], z.shape[0]
     t_len, cu = controls.shape
+    itemsize = z.element_size()
+    max_threads, smem_optin = kernel_limits(device, itemsize)
+    plan = rollout_plan(d, m, d + cu, itemsize, smem_optin, max_threads)
     seed = draw_seed(generator) if noise is None else 0
-    args = {
-        "x0": x0[None, :].expand(s, d).contiguous(),
-        "zs": zs.contiguous(), "ils": ils.contiguous(),
-        "kvar": kvar.contiguous(),
-        "w": lminv.mT.contiguous(),      # w[d,k,m] = σ²Lm⁻¹[d,m,k]
-        "u_val": u_val.contiguous(), "q": q.contiguous(),
-        "controls": controls if cu > 0 else None,
-        "q_sqrt": None if qsq is None else qsq.contiguous(),
-        "noise": noise,
-    }
+    args = kernel_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls,
+                         s)
+    args["noise"] = noise
     xs = torch.empty((s, t_len, d), dtype=dtype, device=device)
     vs = torch.empty_like(xs)
     ptrs = [_kernel_arg(k, v) for k, v in args.items()]
@@ -248,14 +331,18 @@ def rollout(kparams: KernelParams, z: torch.Tensor, lm_inv: torch.Tensor,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*ptrs, xs.data_ptr(), vs.data_ptr(), s, t_len, d, m, cu,
-                 seed, stream)
+                 plan.cluster, plan.dims_per_cta, plan.threads,
+                 plan.smem_bytes, int(plan.resident), seed, stream)
     if err != 0:
-        raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"rollout kernel launch failed ({plan}): "
+                           + _LAUNCH_ERRORS.get(err, f"CUDA error {err}"))
     rollout.launches += 1
+    rollout.last_plan = plan
     return xs, vs
 
 
 rollout.launches = 0
+rollout.last_plan = None
 
 
 def ffvd_normals(seed: int, n: int, device="cuda") -> torch.Tensor:

@@ -6,8 +6,11 @@ without the suite's conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts="" -q
 
-Tolerances: fp64 rtol 1e-9 over all steps (summation order only); fp32
-rtol 1e-4, atol 1e-5 over the first 10 steps.
+Tolerances: fp64 rtol 1e-9, atol 1e-12 over all steps (summation order
+only); fp32 rtol 1e-4, atol 1e-5 over the first 10 steps.  Beside the small
+default shapes, the cases cover each branch of ``rollout_plan``: a cluster
+of six CTAs (D=6), a CTA that owns two dims (D=9), resident factors at
+M=200 in fp32 and global ones at M=320 in fp64.
 """
 
 import pytest
@@ -70,15 +73,66 @@ def test_kernel_matches_plain_version(cuda, dtype, with_q, u_dim):
     torch.testing.assert_close(vk[:, :h], vr[:, :h], **tol)
 
 
+def _check_against_plain(cuda, dtype, d, m, t_len=12, samples=3):
+    """Kernel against the plain version at the file's tolerances; returns
+    the plan the wrapper launched with."""
+    args = _inputs(cuda, dtype, d=d, m=m, t_len=t_len)
+    noise = 0.1 * torch.randn(samples, t_len, d, dtype=dtype, device=cuda)
+    xk, vk = ro.rollout(*args, samples, noise=noise)
+    torch.cuda.synchronize()
+    xr, vr = ro.rollout_reference(*args, samples, noise=noise)
+    if dtype == torch.float64:
+        tol, h = dict(rtol=1e-9, atol=1e-12), t_len
+    else:
+        tol, h = dict(rtol=1e-4, atol=1e-5), 10
+    torch.testing.assert_close(xk[:, :h], xr[:, :h], **tol)
+    torch.testing.assert_close(vk[:, :h], vr[:, :h], **tol)
+    return ro.rollout.last_plan
+
+
 def test_kernel_large_inducing_set(cuda):
-    """D·M = 1280 > 1024 threads (each thread loops over several (d, m)) and
-    more than 48 KB of dynamic shared memory in fp64."""
-    args = _inputs(cuda, torch.float64, d=4, m=320, t_len=12)
-    noise = 0.1 * torch.randn(3, 12, 4, dtype=torch.float64, device=cuda)
-    xk, vk = ro.rollout(*args, 3, noise=noise)
-    xr, vr = ro.rollout_reference(*args, 3, noise=noise)
-    torch.testing.assert_close(xk, xr, rtol=1e-9, atol=1e-12)
-    torch.testing.assert_close(vk, vr, rtol=1e-9, atol=1e-12)
+    """M = 320 in fp64: the packed factors (2·51,360 values a dim) do not
+    fit in shared memory, so the kernel reads them from global memory, and
+    4·320 rows need more than 1024 threads, so each thread loops."""
+    plan = _check_against_plain(cuda, torch.float64, d=4, m=320)
+    assert not plan.resident and plan.cluster == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_six_latent_dims(cuda, dtype):
+    """--x_dims 6: a cluster of six CTAs, one dim each."""
+    plan = _check_against_plain(cuda, dtype, d=6, m=37, t_len=25)
+    assert (plan.cluster, plan.dims_per_cta, plan.resident) == (6, 1, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_nine_latent_dims(cuda, dtype):
+    """D = 9 > 8, the cluster limit: CTA 0 owns dims 0 and 8."""
+    plan = _check_against_plain(cuda, dtype, d=9, m=37, t_len=25)
+    assert (plan.cluster, plan.dims_per_cta, plan.resident) == (8, 2, True)
+
+
+def test_kernel_resident_at_200_inducing_points_fp32(cuda):
+    """--num_inducing 200 in fp32: 160.8 KB of packed factors a CTA."""
+    plan = _check_against_plain(cuda, torch.float32, d=4, m=200)
+    assert plan.resident and plan.smem_bytes > 160_800
+
+
+@pytest.mark.parametrize("dtype,m,resident", [
+    (torch.float32, 100, True), (torch.float64, 100, True),
+    (torch.float64, 200, False)])
+def test_wrapper_launches_the_plan(cuda, dtype, m, resident):
+    """The wrapper launches with the plan ``rollout_plan`` gives for the
+    card's limits, and the resident flag is the expected one."""
+    args = _inputs(cuda, dtype, d=4, m=m, t_len=3)
+    ro.rollout(*args, 2, generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    itemsize = 4 if dtype == torch.float32 else 8
+    max_threads, optin = ro.kernel_limits(cuda, itemsize)
+    assert optin >= 227 * 1024
+    want = ro.rollout_plan(4, m, 5, itemsize, optin, max_threads)
+    assert ro.rollout.last_plan == want
+    assert want.resident is resident
 
 
 def test_in_kernel_noise_is_the_plain_philox_stream(cuda):
