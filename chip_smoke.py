@@ -13,13 +13,20 @@ that each print one JSON line:
    noise; then, on random inputs with shared noise, the launch plan's other
    branches: factors read from global memory (fp64, M=320) and a cluster of
    six CTAs (D=6);
+2b. the kernel with per-sample inputs (``rollout_batched``, S=10 parameter
+   sets perturbed from the warm start) against its plain version, with and
+   without q_sqrt, fp64 and fp32, resident and global (fp64, M=320);
 3. the in-kernel generator: moments of 2²⁰ draws, and the standardised
    step-1 residuals of a 65,536-sample rollout (with the phase's seconds);
 4. the main path in fp32: ``FFVDModel(FFVDConfig("ballbeam", case=4))`` on
    cuda, ``fit()`` for the protocol's 4000 iterations, ``evaluate()``;
+4b. the SG-HMC paths in fp32: ballbeam C5 for 100 iterations and C2 for
+   20, each then ``evaluate()`` (thinning, per-sample q(U), one launch),
+   with the evaluation split into its stages;
 5. 200 fp64 training iterations on cuda against the same on the CPU;
-6. kernel timing with CUDA events at S=10 and S=64, with the launch plan,
-   and one ``{"kernels": [...]}`` line.
+5b. 5 fp64 C5 iterations with injected sampler draws, cuda against CPU;
+6. kernel timing with CUDA events at S=10 and S=64, shared and per-sample
+   inputs, with the launch plan, and one ``{"kernels": [...]}`` line.
 
 The last lines are the card's name and power limit, the kernels line, and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  Without
@@ -133,6 +140,94 @@ def random_inputs(torch, dtype, d, m, t_len, seed=0):
     out["kparams"] = KernelParams(cast(kp.log_variance),
                                   cast(kp.log_lengthscales))
     return out
+
+
+def per_sample_inputs(torch, inp, s, seed=0):
+    """S distinct parameter sets from one: the kernel hypers, U and x0
+    perturbed from a seed per sample, each sample's Lm⁻¹ recomputed from
+    its hypers (jitter 1e-5 at the main shapes, as the model uses; 1e-2 on
+    random inputs, as ``random_inputs`` does); Z, q_sqrt and Q copied."""
+    from ffvd_tpu_torch.model.conditionals import kernel_precal
+    from ffvd_tpu_torch.ops.kernels import KernelParams
+    g = torch.Generator().manual_seed(seed)
+    dtype = inp["z"].dtype
+    f64 = lambda t: t.detach().cpu().double()
+    jig = lambda t, sd: t + sd * torch.randn(t.shape, generator=g,
+                                             dtype=torch.float64)
+    jitter = 1e-5 if inp["z"].shape[0] == 100 else 1e-2
+    rows = []
+    for _ in range(s):
+        kp = KernelParams(jig(f64(inp["kparams"].log_variance), 0.05),
+                          jig(f64(inp["kparams"].log_lengthscales), 0.02))
+        z = f64(inp["z"])
+        lm_inv = kernel_precal("SquaredExponential", kp, z, jitter).lm_inv
+        rows.append((kp.log_variance, kp.log_lengthscales, z, lm_inv,
+                     jig(f64(inp["u_val"]), 0.02), f64(inp["q_sqrt"]),
+                     f64(inp["q"]), jig(f64(inp["x0"]), 0.05)))
+    cols = [torch.stack(c).to("cuda", dtype).contiguous() for c in zip(*rows)]
+    lv, ls, z, lm_inv, u, q_sqrt, q, x0 = cols
+    return dict(kparams=KernelParams(lv, ls), z=z, lm_inv=lm_inv, u_val=u,
+                q_sqrt=q_sqrt, q=q, x0=x0, controls=inp["controls"])
+
+
+def call_batched(fn, inp, q_sqrt=True, **kw):
+    return fn(inp["kparams"], inp["z"], inp["lm_inv"], inp["u_val"],
+              inp["q_sqrt"] if q_sqrt else None, inp["q"], inp["x0"],
+              inp["controls"], **kw)
+
+
+def phase_per_sample_vs_plain(torch, ro):
+    """Phase 2b: the kernel with per-sample inputs (one launch, S=10
+    parameter sets) against ``rollout_reference_batched`` on the same
+    inputs and noise: at the main shapes (resident), with and without
+    q_sqrt, fp64 over all T and fp32 over the first 30 steps; and on the
+    global path (fp64, M=320)."""
+    gen = torch.Generator().manual_seed(4321)
+    cases, worst = [], {"fp32": 0.0, "fp32_all_t": 0.0, "fp64": 0.0}
+    shapes = [("fp64", torch.float64, None), ("fp32", torch.float32, None),
+              ("fp64", torch.float64, 320)]
+    for name, dtype, m in shapes:
+        base = (main_shape_inputs(torch, dtype) if m is None
+                else random_inputs(torch, dtype, 4, m, 20))
+        inp = per_sample_inputs(torch, base, S)
+        t_len = inp["controls"].shape[0]
+        noise = torch.randn((S, t_len, 4), generator=gen,
+                            dtype=torch.float64).to("cuda", dtype)
+        for with_q in (True, False):
+            before = ro.rollout.launches
+            xk, vk = call_batched(ro.rollout_batched, inp, with_q,
+                                  noise=noise)
+            plan = ro.rollout.last_plan
+            launched = ro.rollout.launches - before
+            xr, vr = call_batched(ro.rollout_reference_batched, inp, with_q,
+                                  noise=noise)
+            torch.cuda.synchronize()
+            h = t_len if name == "fp64" else HORIZON
+            tol = (dict(rtol=1e-9, atol=1e-12) if name == "fp64"
+                   else dict(rtol=1e-4, atol=1e-5))
+            ok = (torch.allclose(xk[:, :h], xr[:, :h], **tol)
+                  and torch.allclose(vk[:, :h], vr[:, :h], **tol)
+                  and launched == 1 and plan.resident is (m is None))
+            err = max(float((xk[:, :h] - xr[:, :h]).abs().max()),
+                      float((vk[:, :h] - vr[:, :h]).abs().max()))
+            err_all = max(float((xk - xr).abs().max()),
+                          float((vk - vr).abs().max()))
+            worst[name] = max(worst[name], err)
+            if name == "fp32":
+                worst["fp32_all_t"] = max(worst["fp32_all_t"], err_all)
+            distinct = not torch.allclose(vk[0], vk[1])
+            cases.append({"dtype": name, "M": m or 100, "T": t_len,
+                          "q_sqrt": with_q, "steps_held": h,
+                          "max_abs_err": err, "max_abs_err_all_t": err_all,
+                          "launches": launched, "samples_differ": distinct,
+                          "ok": ok, "plan": plan._asdict()})
+            check(ok and distinct and bool(torch.isfinite(xk).all()),
+                  f"per-sample kernel vs plain: {cases[-1]}")
+    emit("per_sample_vs_plain", S=S,
+         tolerance={"fp64": "rtol 1e-9, atol 1e-12, all T",
+                    "fp32": "rtol 1e-4, atol 1e-5, first 30 steps"},
+         cases=cases, worst=worst)
+    return worst
 
 
 def call(fn, inp, q_sqrt=True, **kw):
@@ -323,6 +418,145 @@ def phase_main_path(torch, ro, card):
     return launches
 
 
+def _sampler_path(torch, ro, card, case, iterations):
+    """Train one SG-HMC case in fp32 on the card and evaluate it, with the
+    launch count set to 0 just before and read just after; then split a
+    second collection, on the chain evaluate() left, into its stages."""
+    from ffvd_tpu_torch.api import FFVDModel
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.eval.rollout import (posterior_inputs,
+                                             rollout_controls, thin_posterior)
+    cfg = FFVDConfig(dataset="ballbeam", case=case)
+    ro.rollout.launches = 0          # this path starts here
+    model = FFVDModel(cfg, device="cuda")
+    check(model.dtype == torch.float32, f"C{case} dtype {model.dtype}")
+    sampled = {k: v.detach().clone()
+               for k, v in model.trainer.subset.split(model.params).items()}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    model.fit(iterations)
+    nll = model.nll_trace.cpu()
+    train_s = time.time() - t0
+    launches_fit = ro.rollout.launches
+    t1 = time.time()
+    res = model.evaluate()
+    torch.cuda.synchronize()
+    eval_ms = (time.time() - t1) * 1e3
+    launches_eval = ro.rollout.launches - launches_fit
+    moved = {k: float((v - sampled[k]).abs().max())
+             for k, v in model.trainer.subset.split(model.params).items()}
+
+    # The same stages as evaluate()'s collection, timed one by one.
+    tr = model.trainer
+    t2 = time.time()
+    samples, _ = thin_posterior(tr, model.state, S,
+                                cfg.posterior_sample_spacing,
+                                model.train_generator)
+    torch.cuda.synchronize()
+    t3 = time.time()
+    with torch.no_grad():
+        inp = posterior_inputs(tr, samples)
+    torch.cuda.synchronize()
+    t4 = time.time()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ro.rollout_batched(controls=rollout_controls(tr.data, model.dataset.n_test),
+                       generator=model.generator, **inp)
+    stop.record()
+    torch.cuda.synchronize()
+    out = {"card": card, "dataset": "ballbeam",
+           "case": cfg.case_config.name,
+           "precision": str(model.dtype).replace("torch.float", "fp"),
+           "iterations": int(nll.numel()),
+           "protocol_iterations": cfg.total_iterations,
+           "sampled_leaves": list(moved), "S": S, "T": model.dataset.n_test,
+           "spacing": cfg.posterior_sample_spacing,
+           "train_seconds": train_s, "train_it_per_s": nll.numel() / train_s,
+           "eval_ms": eval_ms,
+           "eval_split_ms": {"thinning": (t3 - t2) * 1e3,
+                             "q_u_and_factors": (t4 - t3) * 1e3,
+                             "kernel_events": start.elapsed_time(stop),
+                             "kernel_call_wall": (time.time() - t4) * 1e3},
+           "rmse": res["rmse"], "nll": res["nll"],
+           "nll_first": float(nll[0]), "nll_last": float(nll[-1]),
+           "window_count": model.state.window_count,
+           "max_move_from_warm_start": moved,
+           "rollout_launches_fit": launches_fit,
+           "rollout_launches_evaluate": launches_eval}
+    check(bool(torch.isfinite(nll).all()), f"{case}: non-finite nll")
+    check(model.state.window_count == min(iterations, cfg.window_size),
+          f"C{case}: window_count {model.state.window_count}")
+    check(all(v > 0 for v in moved.values()),
+          f"C{case}: sampled leaves did not move: {moved}")
+    check(math.isfinite(res["rmse"]) and math.isfinite(res["nll"]),
+          f"C{case}: non-finite RMSE/NLL {res['rmse']}/{res['nll']}")
+    check(launches_fit == 0 and launches_eval == 1,
+          f"C{case}: rollout launches {launches_fit} in fit, "
+          f"{launches_eval} in evaluate")
+    return out
+
+
+def phase_sampler_paths(torch, ro, card):
+    """Phase 4b: the SG-HMC path in fp32 at full width: ballbeam C5 (the
+    kernel hypers sampled, collapsed q(U) per thinned sample) for 100
+    iterations, the window full after 64; then C2 (hypers and U sampled,
+    no q_sqrt) for 20.  Depth is cut from the protocol's 4000 iterations
+    to stay inside the run's time limit."""
+    t0 = time.time()
+    c5 = _sampler_path(torch, ro, card, 5, 100)
+    c2 = _sampler_path(torch, ro, card, 2, 20)
+    emit("sampler_paths", C5=c5, C2=c2, seconds=time.time() - t0)
+    return {"C5": c5, "C2": c2}
+
+
+def phase_fp64_sampler(torch):
+    """Phase 5b: ballbeam C5 in fp64, 5 outer iterations with the same
+    injected sampler noise and window feeds on cuda and on the CPU; the nll
+    traces and every leaf within rtol 1e-8."""
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.data import create_dataset, load_warmstart
+    from ffvd_tpu_torch.inference.trainer import SUBSTEP_FLAGS, Trainer
+    from ffvd_tpu_torch.model.params import (SSMData,
+                                             init_params_from_warmstart)
+    t0 = time.time()
+    cfg = FFVDConfig(dataset="ballbeam", case=5)
+    ds = create_dataset("ballbeam")
+    ws = load_warmstart("ballbeam")
+    g = torch.Generator().manual_seed(55)
+    draws, runs = None, {}
+    for dev in ("cpu", "cuda"):
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+        tr = Trainer(cfg, SSMData(y=as_t(ds.y_train), control=as_t(ds.control)))
+        state = tr.init_state(init_params_from_warmstart(
+            ws, device=dev, dtype=torch.float64))
+        if draws is None:
+            sub = tr.subset.split(state.params)
+            draws = [{"noise": {k: torch.randn((len(SUBSTEP_FLAGS),)
+                                               + tuple(v.shape), generator=g,
+                                               dtype=torch.float64)
+                                for k, v in sub.items()},
+                      "feed": int(torch.randint(0, i + 1, (), generator=g))}
+                     for i in range(5)]
+        t1 = time.time()
+        state, trace = tr.run(state, 5, draws=[
+            {"noise": {k: v.to(dev) for k, v in d["noise"].items()},
+             "feed": d["feed"]} for d in draws])
+        runs[dev] = (trace.cpu(), {k: v.detach().cpu() for k, v
+                                   in state.params.leaves().items()},
+                     time.time() - t1)
+    rel = float(((runs["cuda"][0] - runs["cpu"][0]).abs()
+                 / runs["cpu"][0].abs()).max())
+    leaf_ok = all(torch.allclose(runs["cuda"][1][k], v, rtol=1e-8,
+                                 atol=1e-12)
+                  for k, v in runs["cpu"][1].items())
+    emit("fp64_sampler", case="C5", iterations=5, max_rel_diff=rel,
+         leaves_within_rtol_1e_8=leaf_ok, seconds_cuda=runs["cuda"][2],
+         seconds_cpu=runs["cpu"][2], seconds=time.time() - t0)
+    check(torch.allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-8, atol=0)
+          and leaf_ok, f"fp64 C5 cuda vs cpu differ: max rel {rel}")
+
+
 def phase_fp64_train(torch):
     """Phase 5: 200 fp64 iterations, cuda against cpu, within rtol 1e-8."""
     from ffvd_tpu_torch.api import FFVDModel
@@ -343,10 +577,13 @@ def phase_fp64_train(torch):
           f"fp64 cuda vs cpu traces differ: max rel {rel}")
 
 
-def _bound(dtype_name, s, t, d, m, din, cu, itemsize, with_noise_input):
+def _bound(dtype_name, s, t, d, m, din, cu, itemsize, with_noise_input,
+           per_sample=False):
     """Least time for the rollout's work at these shapes: the larger of its
     compulsory bytes over HBM bandwidth and its operations over the peak
-    rate.  Lm⁻¹ and q_sqrt are triangular, so only their triangles count."""
+    rate.  Lm⁻¹ and q_sqrt are triangular, so only their triangles count.
+    ``per_sample``: every sample reads its own parameters, so they count S
+    times."""
     tri = d * m * (m + 1) // 2
     per_step = (d * m * (4 * din + 2)      # e: scaled diffs, squares, exp
                 + 2 * 2 * tri              # a = σ²Lm⁻¹e, q_sqrtᵀa (FMAs)
@@ -354,7 +591,8 @@ def _bound(dtype_name, s, t, d, m, din, cu, itemsize, with_noise_input):
                 + 3 * d * m                # three reductions over M
                 + 8 * d)                   # var, clamp, sqrt, x update
     flops = s * t * per_step
-    elems_in = (s * d + d * m * din + d * din + d + 2 * tri + m * d + d
+    params = d * m * din + d * din + d + 2 * tri + m * d + d
+    elems_in = (s * d + params * (s if per_sample else 1)
                 + t * cu + (s * t * d if with_noise_input else 0))
     elems_out = 2 * s * t * d
     nbytes = (elems_in + elems_out) * itemsize
@@ -425,12 +663,21 @@ def phase_timing(torch, ro):
         p_ms = _time_ms(torch, lambda: call(ro.rollout_reference, inp,
                                             generator=gen), 5)
         breakdown = _breakdown(torch, ro, inp)
+        per = per_sample_inputs(torch, inp, S)
+        ps_ms = _time_ms(torch, lambda: call_batched(
+            ro.rollout_batched, per, generator=gen), 200)
+        ps_plan = ro.rollout.last_plan
+        ps_plain_ms = _time_ms(torch, lambda: call_batched(
+            ro.rollout_reference_batched, per, generator=gen), 3)
         ro.rollout.launches = launches   # timing launches are not the path's
         itemsize = 4 if dtype == torch.float32 else 8
         bound_ms, bound_by, flops, nbytes = _bound(
             name, S, T, 4, 100, 5, 1, itemsize, with_noise_input=False)
         bound64_ms = _bound(name, 64, T, 4, 100, 5, 1, itemsize,
                             with_noise_input=False)[0]
+        ps_bound_ms, ps_bound_by, _, ps_bytes = _bound(
+            name, S, T, 4, 100, 5, 1, itemsize, with_noise_input=False,
+            per_sample=True)
         out[name] = {"ms": k_ms, "us_per_step": k_ms * 1e3 / T,
                      "breakdown": breakdown,
                      "plain_ms": p_ms, "bound_ms": bound_ms,
@@ -440,6 +687,14 @@ def phase_timing(torch, ro):
                      "s64": {"ms": k64_ms, "us_per_step": k64_ms * 1e3 / T,
                              "bound_ms": bound64_ms,
                              "kernel_launches_timed": 50},
+                     "per_sample": {"ms": ps_ms, "plain_ms": ps_plain_ms,
+                                    "bound_ms": ps_bound_ms,
+                                    "bound_by": ps_bound_by,
+                                    "bytes": ps_bytes,
+                                    "vs_shared": ps_ms / k_ms,
+                                    "kernel_launches_timed": 200,
+                                    "plain_calls_timed": 3,
+                                    "plan": ps_plan._asdict()},
                      "plan": plan._asdict()}
     emit("timing", shapes={"S": S, "T": T, "D": 4, "M": 100, "Din": 5},
          noise="in-kernel Philox", library="no single PyTorch call computes "
@@ -473,13 +728,27 @@ def main() -> int:
          ptxas=[ln.strip() for ln in logs["rollout"].splitlines()
                 if "registers" in ln or "spill" in ln])
 
-    worst = phase_kernel_vs_plain(torch, ro)
-    phase_generator(torch, ro)
-    launches = phase_main_path(torch, ro, card)
-    phase_fp64_train(torch)
-    timing = phase_timing(torch, ro)
+    seconds = {"device_build": build_s}
+
+    def timed(name, fn, *args):
+        t = time.time()
+        out = fn(*args)
+        seconds[name] = time.time() - t
+        return out
+
+    worst = timed("kernel_vs_plain", phase_kernel_vs_plain, torch, ro)
+    ps_worst = timed("per_sample_vs_plain", phase_per_sample_vs_plain, torch,
+                     ro)
+    timed("generator", phase_generator, torch, ro)
+    launches = timed("main_path", phase_main_path, torch, ro, card)
+    sampler = timed("sampler_paths", phase_sampler_paths, torch, ro, card)
+    timed("fp64_train", phase_fp64_train, torch)
+    timed("fp64_sampler", phase_fp64_sampler, torch)
+    timing = timed("timing", phase_timing, torch, ro)
+    emit("phase_seconds", **seconds, total=time.time() - t0)
 
     f32, f64 = timing["fp32"], timing["fp64"]
+    ps32, ps64 = f32["per_sample"], f64["per_sample"]
     kernels = {"kernels": [{
         "name": "rollout", "route": "cuda",
         "source": "ffvd_tpu_torch/csrc/rollout.cu",
@@ -488,9 +757,23 @@ def main() -> int:
         "ms": f32["ms"], "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
         "library_ms": None, "plan": f32["plan"],
+        "launches_by_path": {
+            "C4": launches,
+            **{k: v["rollout_launches_fit"] + v["rollout_launches_evaluate"]
+               for k, v in sampler.items()}},
         "fp64": {"ms": f64["ms"], "plain_ms": f64["plain_ms"],
                  "bound_ms": f64["bound_ms"], "bound_by": f64["bound_by"],
                  "max_abs_err": worst["fp64"], "plan": f64["plan"]},
+        "per_sample": {
+            "launches": sum(v["rollout_launches_evaluate"]
+                            for v in sampler.values()),
+            "max_abs_err": ps_worst["fp32"], "ms": ps32["ms"],
+            "plain_ms": ps32["plain_ms"], "bound_ms": ps32["bound_ms"],
+            "bound_by": ps32["bound_by"], "library_ms": None,
+            "fp64": {"ms": ps64["ms"], "plain_ms": ps64["plain_ms"],
+                     "bound_ms": ps64["bound_ms"],
+                     "bound_by": ps64["bound_by"],
+                     "max_abs_err": ps_worst["fp64"]}},
     }]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

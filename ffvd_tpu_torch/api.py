@@ -8,8 +8,10 @@ the card and fp64 on the CPU unless ``dtype`` says otherwise.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ffvd_tpu_torch.config import FFVDConfig
@@ -18,7 +20,7 @@ from ffvd_tpu_torch.eval.results import save_results_npz
 from ffvd_tpu_torch.eval.rollout import (collect_posterior, predict_summary,
                                          rmse_nll)
 from ffvd_tpu_torch.inference.trainer import Trainer
-from ffvd_tpu_torch.model.likelihoods import emission_mean
+from ffvd_tpu_torch.model.likelihoods import emission_mean, use_full_r
 from ffvd_tpu_torch.model.params import (GPSSMParams, SSMData,
                                          init_params_from_warmstart)
 from ffvd_tpu_torch.utils.device import default_dtype, resolve_device
@@ -69,8 +71,12 @@ class FFVDModel:
                             control=as_t(self.dataset.control))
         self.trainer = Trainer(cfg, self.data)
         self.state = self.trainer.init_state(params)
-        # Host generator: rollout noise seeds are drawn from it.
+        # Host generator: rollout noise seeds are drawn from it.  Training
+        # generator, on the device: SG-HMC noise, window feeds, thinning and
+        # the emission noise of sample().
         self.generator = torch.Generator().manual_seed(cfg.seed)
+        self.train_generator = torch.Generator(
+            device=self.device).manual_seed(cfg.seed)
         self.nll_trace = torch.zeros((0,), dtype=self.dtype,
                                      device=self.device)
         self.rmse_seq = []
@@ -95,8 +101,9 @@ class FFVDModel:
         step = min(chunk_size, eval_every or n)
         while done < n:
             m = min(step, n - done)
-            self.state, nlls = self.trainer.run(self.state, m,
-                                                chunk_size=chunk_size)
+            self.state, nlls = self.trainer.run(
+                self.state, m, chunk_size=chunk_size,
+                generator=self.train_generator)
             self.nll_trace = torch.cat([self.nll_trace, nlls])
             done += m
             if eval_every and (done % eval_every == 0 or done == n):
@@ -109,14 +116,21 @@ class FFVDModel:
         return torch.as_tensor(self.dataset.y_test[:test_len],
                                dtype=self.dtype, device=self.device)
 
+    def _collect(self, test_len: int, num_samples: Optional[int] = None,
+                 noise: Optional[torch.Tensor] = None, thin_noise=None):
+        """Posterior rollouts; the thinned SG-HMC chain is kept."""
+        xs, vs, self.state = collect_posterior(
+            self.trainer, self.state, test_len, num=num_samples,
+            generator=self.generator, noise=noise, thin_noise=thin_noise,
+            thin_generator=self.train_generator)
+        return xs, vs
+
     @torch.no_grad()
     def evaluate_quick(self, num_samples: int = 3, horizon: int = 30,
                        noise: Optional[torch.Tensor] = None) -> dict:
         """Cheap mid-training eval (fewer posterior samples)."""
         test_len = min(self.dataset.n_test, max(horizon, 30))
-        xs, vs = collect_posterior(self.trainer, self.params, test_len,
-                                   num=num_samples, generator=self.generator,
-                                   noise=noise)
+        xs, vs = self._collect(test_len, num_samples, noise)
         py, pv, _ = predict_summary(self.params, xs, vs,
                                     self.cfg.emission_noise)
         rmse, nll = rmse_nll(self._y_test(test_len), py, pv,
@@ -124,19 +138,34 @@ class FFVDModel:
         return {"rmse": float(rmse), "nll": float(nll)}
 
     @torch.no_grad()
+    def evaluate_per_sample(self, horizon: int = 30):
+        """Per-posterior-sample RMSE/NLL lists (the reference's
+        collect_samples_2023 output, base_model.py:619-635)."""
+        xs, vs = self._collect(self.dataset.n_test)
+        y_test = self._y_test()
+        rmses, nlls = [], []
+        for s in range(xs.shape[0]):
+            py, pv, _ = predict_summary(self.params, xs[s:s + 1],
+                                        vs[s:s + 1], self.cfg.emission_noise)
+            r, n = rmse_nll(y_test, py, pv, self.dataset.y_train_std,
+                            horizon=horizon)
+            rmses.append(float(r))
+            nlls.append(float(n))
+        return rmses, nlls
+
+    @torch.no_grad()
     def predict(self, test_len: Optional[int] = None,
                 num_samples: Optional[int] = None, spread: bool = False,
-                noise: Optional[torch.Tensor] = None):
+                noise: Optional[torch.Tensor] = None, thin_noise=None):
         """Posterior-mean free-run prediction: (ŷ (T,P), v̂ (T,P)).
 
         ``spread=True`` adds the across-rollout variance of the per-sample
         predictive means to v̂ (the mixture total-variance term the
         reference's estimator drops, base_model.py:334-343).  ``noise``
-        (S, T, D) replaces the rollout's drawn noise."""
+        (S, T, D) replaces the rollout's drawn noise, ``thin_noise`` (path →
+        (S, spacing, ...)) the SG-HMC thinning's."""
         test_len = test_len or self.dataset.n_test
-        xs, vs = collect_posterior(self.trainer, self.params, test_len,
-                                   num=num_samples, generator=self.generator,
-                                   noise=noise)
+        xs, vs = self._collect(test_len, num_samples, noise, thin_noise)
         self._last_rollout = (xs, vs)
         py, pv, fy = predict_summary(self.params, xs, vs,
                                      self.cfg.emission_noise)
@@ -149,17 +178,46 @@ class FFVDModel:
     @torch.no_grad()
     def evaluate(self, horizon: int = 30, num_samples: Optional[int] = None,
                  spread: bool = False,
-                 noise: Optional[torch.Tensor] = None) -> dict:
+                 noise: Optional[torch.Tensor] = None,
+                 thin_noise=None) -> dict:
         """Train-free-run eval: RMSE/NLL on the first ``horizon`` test steps
-        (base_model.py:345-349, :629).  See predict() for ``spread`` and
-        ``noise``."""
+        (base_model.py:345-349, :629).  See predict() for ``spread``,
+        ``noise`` and ``thin_noise``."""
         py, pv = self.predict(num_samples=num_samples, spread=spread,
-                              noise=noise)
+                              noise=noise, thin_noise=thin_noise)
         rmse, nll = rmse_nll(self._y_test(), py, pv,
                              self.dataset.y_train_std, horizon=horizon)
         return {"rmse": float(rmse), "nll": float(nll),
                 "predict_y": py.cpu().numpy(),
                 "predict_y_var": pv.cpu().numpy()}
+
+    @torch.no_grad()
+    def calculate_density(self, y: np.ndarray, ystd: float = 1.0):
+        """Log predictive density of held-out observations under the
+        free-run predictive (working version of models.py:330-333)."""
+        py, pv = self.predict(test_len=len(y))
+        yv = torch.as_tensor(np.asarray(y), dtype=self.dtype,
+                             device=self.device).reshape(py.shape) * ystd
+        mu = py * ystd
+        var = pv * (ystd ** 2)
+        return (-0.5 * torch.log(2 * math.pi * var)
+                - 0.5 * (yv - mu) ** 2 / var).cpu().numpy()
+
+    @torch.no_grad()
+    def sample(self, test_len: Optional[int] = None, s: int = 1):
+        """Draw S free-run observation trajectories (working version of
+        models.py:335-337); the emission noise comes from the training
+        generator."""
+        test_len = test_len or self.dataset.n_test
+        xs, _ = self._collect(test_len, s)
+        ys = xs @ self.params.c + self.params.d
+        z = torch.randn(ys.shape, generator=self.train_generator,
+                        device=self.device, dtype=ys.dtype)
+        if use_full_r(self.cfg.emission_noise, self.params.c.shape[1]):
+            noise = z @ self.params.rchol.T      # ε = z·Lᵀ, R = L·Lᵀ
+        else:
+            noise = z * self.params.rchol_diag
+        return (ys + noise).cpu().numpy()
 
     @torch.no_grad()
     def save_results(self, path, case: Optional[str] = None,

@@ -49,9 +49,10 @@ def build_argparser() -> argparse.ArgumentParser:
                    default="normal")
     p.add_argument("--prng_impl", choices=["threefry2x32", "rbg"],
                    default="threefry2x32",
-                   help="JAX PRNG choice; the port's Adam cases draw no "
-                        "training noise and its rollout uses Philox, so only "
-                        "the default is accepted")
+                   help="JAX PRNG choice; not applicable here: the port "
+                        "draws its SG-HMC noise and window feeds from a "
+                        "torch.Generator seeded by --seed and its rollout "
+                        "noise from Philox, so only the default is accepted")
     p.add_argument("--hyperparameter_sampling", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n_ensemble", type=int, default=1)

@@ -13,6 +13,11 @@
 //                                      Pallas kernel stores it unclamped)
 //   x_{t+1} = x_t + mean + √vt · ε
 //
+// The parameters (Z/ℓ, 1/ℓ, σ², the factors, U, Q) are shared by all
+// samples (the iid posterior of C1/C4) or each sample's own (the thinned
+// SG-HMC chain of C2/C3/C5/C7): each array comes with a per-sample stride,
+// 0 when shared, and each cluster offsets its pointers by s × stride.
+//
 // ε is read from `noise` (S,T,D) when given; otherwise it is drawn here:
 // Philox4x32-10 keyed by the 64-bit `seed`, counter (s, t, d, 0), and the
 // Box-Muller of pallas_rollout.py::bits_to_normal on the first two words.
@@ -172,9 +177,22 @@ __device__ __forceinline__ T packed_row_dot(const T* base, size_t gstride,
   return acc;
 }
 
+// Elements between two samples' slices of each parameter array; 0 when
+// every sample reads the same one (ops/rollout.py::sample_strides).  A
+// thinned SG-HMC posterior gives each sample its own hypers, Z, U (or
+// q(U)), Q and x_N, and still takes one launch.  The strides are 32-bit and
+// applied (32×32→64-bit products) only where the fill reads: 64-bit strides
+// added to the pointer arguments at entry cost 24-43 registers a thread
+// (resident: 72 → 96 fp32, 80 → 123 fp64), and at 96 an SM holds one CTA
+// of 416 threads instead of two.
+struct SampleStrides {
+  unsigned int zs, ils, kvar, lp, u, q, qp;
+};
+
 // One cluster of C CTAs per sample (blocks s·C … s·C+C−1); CTA r owns dims
 // r, r+C, ... < D.  kResident: the packed factors sit in shared memory;
-// otherwise the same loops read them from global memory.
+// otherwise the same loops read them from global memory.  The shapes below
+// are one sample's slice: sample s starts at s × its stride in `st`.
 template <typename T, bool kResident>
 __global__ void rollout_kernel(
     const T* __restrict__ x0,      // (S, D)
@@ -189,13 +207,14 @@ __global__ void rollout_kernel(
     const T* __restrict__ noise,   // (S, T, D)    or null: draw in-kernel
     T* __restrict__ xs,            // (S, T, D)
     T* __restrict__ vs,            // (S, T, D)
-    int n_t, int D, int M, int CU, int G, uint64_t seed) {
+    int n_t, int D, int M, int CU, int G, SampleStrides st, uint64_t seed) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sh = reinterpret_cast<T*>(smem_raw);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int r = (int)cluster.block_rank();
   const int s = blockIdx.x / C;
+  const unsigned su = (unsigned)s;  // sample s's slice: base + su × stride
   const int din = D + CU;
   const int P = M * (M + 1) / 2;
   const Layout L(D, M, din, G, kResident);
@@ -227,36 +246,47 @@ __global__ void rollout_kernel(
   if constexpr (kResident) {
     T* const s_lp = sh + L.lp;
     T* const s_qp = sh + L.qp;
+    const T* const lps = lp + (size_t)su * st.lp;
+    const T* const qps =
+        qp != nullptr ? qp + (size_t)su * st.qp : nullptr;
     for (int g = 0; g < n_own; ++g) {
       const size_t src = (size_t)(r + g * C) * P;
       for (int k = tid; k < P; k += nth) {
-        s_lp[g * P + k] = lp[src + k];
-        if (qp != nullptr) s_qp[g * P + k] = qp[src + k];
+        s_lp[g * P + k] = lps[src + k];
+        if (qps != nullptr) s_qp[g * P + k] = qps[src + k];
       }
     }
     lbase = s_lp;
     qbase = qp != nullptr ? s_qp : nullptr;
     gstride = P;
   } else {
-    lbase = lp + (size_t)r * P;
-    qbase = qp != nullptr ? qp + (size_t)r * P : nullptr;
+    lbase = lp + (size_t)su * st.lp + (size_t)r * P;
+    qbase = qp != nullptr ? qp + (size_t)su * st.qp + (size_t)r * P
+                          : nullptr;
     gstride = (size_t)C * P;
   }
-  for (int i = tid; i < GM; i += nth) {
-    const int g = i / M;
-    const int m = i - g * M;
-    const int d = r + g * C;
-    s_u[i] = u[(size_t)m * D + d];
-    for (int k = 0; k < din; ++k)
-      s_z[i * din + k] = zs[((size_t)d * M + m) * din + k];
-  }
-  for (int i = tid; i < n_own * din; i += nth) {
-    const int g = i / din;
-    s_il[i] = ils[(size_t)(r + g * C) * din + (i - g * din)];
-  }
-  for (int g = tid; g < n_own; g += nth) {
-    s_kvar[g] = kvar[r + g * C];
-    s_q[g] = q[r + g * C];
+  {  // this sample's U, Z/ℓ, 1/ℓ, σ² and Q
+    const T* const us = u + (size_t)su * st.u;
+    const T* const zss = zs + (size_t)su * st.zs;
+    const T* const ilss = ils + (size_t)su * st.ils;
+    const T* const kvs = kvar + (size_t)su * st.kvar;
+    const T* const qs = q + (size_t)su * st.q;
+    for (int i = tid; i < GM; i += nth) {
+      const int g = i / M;
+      const int m = i - g * M;
+      const int d = r + g * C;
+      s_u[i] = us[(size_t)m * D + d];
+      for (int k = 0; k < din; ++k)
+        s_z[i * din + k] = zss[((size_t)d * M + m) * din + k];
+    }
+    for (int i = tid; i < n_own * din; i += nth) {
+      const int g = i / din;
+      s_il[i] = ilss[(size_t)(r + g * C) * din + (i - g * din)];
+    }
+    for (int g = tid; g < n_own; g += nth) {
+      s_kvar[g] = kvs[r + g * C];
+      s_q[g] = qs[r + g * C];
+    }
   }
   for (int i = tid; i < D; i += nth) xbuf[i] = x0[(size_t)s * D + i];
   // Every CTA of the cluster has started (a condition of writing into its
@@ -378,7 +408,8 @@ template <typename T, bool kResident>
 int launch(const T* x0, const T* zs, const T* ils, const T* kvar, const T* lp,
            const T* u, const T* q, const T* ctrl, const T* qp, const T* noise,
            T* xs, T* vs, int S, int n_t, int D, int M, int CU, int C, int G,
-           int threads, int smem_bytes, uint64_t seed, cudaStream_t stream) {
+           int threads, int smem_bytes, SampleStrides st, uint64_t seed,
+           cudaStream_t stream) {
   int max_threads = 0, optin = 0;
   const int err = kernel_limits<T, kResident>(&max_threads, &optin);
   if (err != 0) return err;
@@ -409,7 +440,7 @@ int launch(const T* x0, const T* zs, const T* ils, const T* kvar, const T* lp,
   if (clusters < 1) return kErrCluster;
   e = cudaLaunchKernelEx(&cfg, rollout_kernel<T, kResident>, x0, zs, ils,
                          kvar, lp, u, q, ctrl, qp, noise, xs, vs, n_t, D, M,
-                         CU, G, seed);
+                         CU, G, st, seed);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -419,11 +450,12 @@ int launch_rollout(const T* x0, const T* zs, const T* ils, const T* kvar,
                    const T* lp, const T* u, const T* q, const T* ctrl,
                    const T* qp, const T* noise, T* xs, T* vs, int S, int n_t,
                    int D, int M, int CU, int C, int G, int threads,
-                   int smem_bytes, int resident, uint64_t seed, void* stream) {
+                   int smem_bytes, int resident, SampleStrides st,
+                   uint64_t seed, void* stream) {
   if (C < 1 || C > 8 || C > D || G != (D + C - 1) / C) return kErrCluster;
   auto* launcher = resident ? &launch<T, true> : &launch<T, false>;
   return launcher(x0, zs, ils, kvar, lp, u, q, ctrl, qp, noise, xs, vs, S,
-                  n_t, D, M, CU, C, G, threads, smem_bytes, seed,
+                  n_t, D, M, CU, C, G, threads, smem_bytes, st, seed,
                   (cudaStream_t)stream);
 }
 
@@ -453,11 +485,16 @@ extern "C" int ffvd_rollout_f32(const float* x0, const float* zs,
                                 const float* qp, const float* noise,
                                 float* xs, float* vs, int S, int n_t, int D,
                                 int M, int CU, int C, int G, int threads,
-                                int smem_bytes, int resident, uint64_t seed,
+                                int smem_bytes, int resident,
+                                unsigned st_zs, unsigned st_ils,
+                                unsigned st_kvar, unsigned st_lp,
+                                unsigned st_u, unsigned st_q,
+                                unsigned st_qp, uint64_t seed,
                                 void* stream) {
+  const SampleStrides st{st_zs, st_ils, st_kvar, st_lp, st_u, st_q, st_qp};
   return launch_rollout<float>(x0, zs, ils, kvar, lp, u, q, ctrl, qp, noise,
                                xs, vs, S, n_t, D, M, CU, C, G, threads,
-                               smem_bytes, resident, seed, stream);
+                               smem_bytes, resident, st, seed, stream);
 }
 
 extern "C" int ffvd_rollout_f64(const double* x0, const double* zs,
@@ -467,11 +504,16 @@ extern "C" int ffvd_rollout_f64(const double* x0, const double* zs,
                                 const double* qp, const double* noise,
                                 double* xs, double* vs, int S, int n_t, int D,
                                 int M, int CU, int C, int G, int threads,
-                                int smem_bytes, int resident, uint64_t seed,
+                                int smem_bytes, int resident,
+                                unsigned st_zs, unsigned st_ils,
+                                unsigned st_kvar, unsigned st_lp,
+                                unsigned st_u, unsigned st_q,
+                                unsigned st_qp, uint64_t seed,
                                 void* stream) {
+  const SampleStrides st{st_zs, st_ils, st_kvar, st_lp, st_u, st_q, st_qp};
   return launch_rollout<double>(x0, zs, ils, kvar, lp, u, q, ctrl, qp, noise,
                                 xs, vs, S, n_t, D, M, CU, C, G, threads,
-                                smem_bytes, resident, seed, stream);
+                                smem_bytes, resident, st, seed, stream);
 }
 
 // n standard normals from the rollout's generator: out[i] is the draw of

@@ -1,16 +1,21 @@
 """Posterior collection and free-running rollout prediction.
 
 Counterpart of ``ffvd_tpu/eval/rollout.py`` (rebuild of
-``collect_samples_formal``, base_model.py:197-522), iid branch: for cases
-without SG-HMC leaves the posterior samples are independent, so one q(U)
-summary feeds S rollouts, all computed by one call of
-``ops.rollout.rollout`` (the CUDA kernel on the card).  The SG-HMC thinning
-branch waits for ROADMAP Queue 1 item 6.
+``collect_samples_formal``, base_model.py:197-522).  Per sample (reference
+semantics):
 
-Per sample: (if U collapsed) q(U) = N(H⁻¹a, H⁻¹) from the training
-trajectory (:242-253); free-run from the last training state x_N (:237):
-per step x ← x + f_mu + N(0, f_var + Q) (:296-302), recording x and
-f_var + Q.
+  - (if SG-HMC leaves exist) run ``spacing`` sample-only SG-HMC updates,
+    continuing the chain, then factorise that sample's Kmm (:227-234);
+  - (if U collapsed) compute q(U) = N(H⁻¹a, H⁻¹) from the training
+    trajectory (:242-253);
+  - free-run from the last training state x_N (:237): per step
+    x ← x + f_mu + N(0, f_var + Q) (:296-302), recording x and f_var + Q.
+
+Without SG-HMC leaves (C1, C4) the samples are iid and share one set of
+parameters: one ``ops.rollout.rollout`` call.  With them (C2, C3, C5, C7,
+hyperparameter sampling) each sample has its own hypers, Z, U or q(U), Q
+and x_N, and all S go to one ``ops.rollout.rollout_batched`` call.  On the
+card either is one launch of the CUDA kernel.
 
 Metrics (base_model.py:340-349, :629):
   ŷ   = mean_samples(x C) + d,   v̂ = mean_samples(x_var C²) + R
@@ -20,18 +25,20 @@ Metrics (base_model.py:340-349, :629):
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Dict, List, Optional
 
 import torch
 
-from ffvd_tpu_torch.inference.trainer import Trainer
+from ffvd_tpu_torch.inference.trainer import Trainer, TrainState
 from ffvd_tpu_torch.model.conditionals import (Precal, collapsed_u_posterior,
                                                kernel_precal)
 from ffvd_tpu_torch.model.elbo import gp_inputs
 from ffvd_tpu_torch.model.likelihoods import emission_mean, use_full_r
 from ffvd_tpu_torch.model.params import GPSSMParams, SSMData
 from ffvd_tpu_torch.ops import rollout as rollout_ops
+from ffvd_tpu_torch.ops.kernels import KernelParams
 
 
 def u_and_qsqrt(trainer: Trainer, params: GPSSMParams, data: SSMData,
@@ -51,34 +58,101 @@ def u_and_qsqrt(trainer: Trainer, params: GPSSMParams, data: SSMData,
     return u_val, q_sqrt
 
 
+def thin_posterior(trainer: Trainer, state: TrainState, num: int,
+                   spacing: int, generator: Optional[torch.Generator] = None,
+                   thin_noise: Optional[Dict[str, torch.Tensor]] = None):
+    """Continue the SG-HMC chain: per sample, ``spacing`` sample-only
+    sub-steps of the SG-HMC leaves (base_model.py:227-231).  ``thin_noise``
+    (path → (num, spacing, ...)) replaces the normals drawn from
+    ``generator``.  Returns (the ``num`` thinned params, the state with the
+    moved chain)."""
+    subset = trainer.subset
+    params = state.params
+    sub = {k: v.detach() for k, v in subset.split(params).items()}
+    sstate = state.sghmc
+    samples = []
+    for i in range(num):
+        for j in range(spacing):
+            nz = (None if thin_noise is None
+                  else {k: v[i, j] for k, v in thin_noise.items()})
+            sub, sstate = trainer.sghmc_move(sub, sstate, params, False, nz,
+                                             generator)
+        samples.append(subset.merge(sub, params))
+    return samples, dataclasses.replace(
+        state, params=subset.merge(sub, params), sghmc=sstate)
+
+
+def posterior_inputs(trainer: Trainer, samples: List[GPSSMParams]) -> dict:
+    """The rollout's per-sample inputs, stacked on a leading sample axis:
+    each sample's Kmm factorisation, its U (or collapsed q(U)), Q and x_N."""
+    cfg = trainer.cfg
+    cols = {k: [] for k in ("log_variance", "log_lengthscales", "z",
+                            "lm_inv", "u_val", "q_sqrt", "q", "x0")}
+    for p in samples:
+        pre = kernel_precal(cfg.kernel_type, p.kernel, p.z, cfg.jitter)
+        u_val, q_sqrt = u_and_qsqrt(trainer, p, trainer.data, pre)
+        for k, v in (("log_variance", p.kernel.log_variance),
+                     ("log_lengthscales", p.kernel.log_lengthscales),
+                     ("z", p.z), ("lm_inv", pre.lm_inv), ("u_val", u_val),
+                     ("q_sqrt", q_sqrt), ("q", p.q), ("x0", p.x[-1])):
+            cols[k].append(v)
+    out = {k: None if v[0] is None else torch.stack(v).detach()
+           for k, v in cols.items()}
+    out["kparams"] = KernelParams(out.pop("log_variance"),
+                                  out.pop("log_lengthscales"))
+    return out
+
+
+def rollout_controls(data: SSMData, test_len: int) -> torch.Tensor:
+    """The controls of the first ``test_len`` test steps, zero-padded when
+    the control series is shorter."""
+    n_train = data.y.shape[0]
+    controls = data.control[n_train:n_train + test_len]
+    if controls.shape[0] < test_len:
+        pad = controls.new_zeros((test_len - controls.shape[0],
+                                  controls.shape[1]))
+        controls = torch.cat([controls, pad], dim=0)
+    return controls.contiguous()
+
+
 @torch.no_grad()
-def collect_posterior(trainer: Trainer, params: GPSSMParams, test_len: int,
+def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
                       num: Optional[int] = None,
                       generator: Optional[torch.Generator] = None,
-                      noise: Optional[torch.Tensor] = None):
+                      noise: Optional[torch.Tensor] = None,
+                      thin_noise: Optional[Dict[str, torch.Tensor]] = None,
+                      thin_generator: Optional[torch.Generator] = None):
     """Draw ``num`` posterior predictive trajectories of ``test_len`` steps.
 
-    ``noise`` (num, test_len, D), when given, replaces the drawn noise.
-    Returns (predict_x (S, T, D), predict_x_var (S, T, D))."""
+    Without SG-HMC leaves the samples are iid: one q(U) summary, one
+    ``rollout`` call.  With them the chain is thinned first
+    (``thin_posterior``, normals from ``thin_generator`` or ``thin_noise``)
+    and the S samples' own parameters go to one ``rollout_batched`` call.
+    ``generator`` draws the rollout's Philox seed; ``noise`` (num,
+    test_len, D), when given, replaces that noise.  Returns (predict_x
+    (S, T, D), predict_x_var (S, T, D), the state with the moved chain)."""
     cfg = trainer.cfg
     num = num or cfg.num_posterior_samples
-    data = trainer.data
     if cfg.kernel_type != "SquaredExponential":
         raise NotImplementedError(
             "the rollout kernel is SE-ARD only; a LinearK rollout is not "
             "ported yet (ROADMAP Queue 1, item 5)")
-    n_train = data.y.shape[0]
-    controls = data.control[n_train:n_train + test_len]
-    if controls.shape[0] < test_len:  # control shorter than test
-        pad = controls.new_zeros((test_len - controls.shape[0],
-                                  controls.shape[1]))
-        controls = torch.cat([controls, pad], dim=0)
+    controls = rollout_controls(trainer.data, test_len)
+    if trainer.has_sghmc:
+        samples, state = thin_posterior(
+            trainer, state, num, cfg.posterior_sample_spacing,
+            thin_generator, thin_noise)
+        inp = posterior_inputs(trainer, samples)
+        xs, vs = rollout_ops.rollout_batched(
+            controls=controls, noise=noise, generator=generator, **inp)
+        return xs, vs, state
+    params = state.params
     pre = kernel_precal(cfg.kernel_type, params.kernel, params.z, cfg.jitter)
-    u_val, q_sqrt = u_and_qsqrt(trainer, params, data, pre)
-    return rollout_ops.rollout(
+    u_val, q_sqrt = u_and_qsqrt(trainer, params, trainer.data, pre)
+    xs, vs = rollout_ops.rollout(
         params.kernel, params.z, pre.lm_inv, u_val, q_sqrt, params.q,
-        params.x[-1], controls.contiguous(), num, noise=noise,
-        generator=generator)
+        params.x[-1], controls, num, noise=noise, generator=generator)
+    return xs, vs, state
 
 
 def predict_summary(params: GPSSMParams, predict_x: torch.Tensor,

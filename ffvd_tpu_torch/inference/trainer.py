@@ -1,25 +1,44 @@
-"""The FFVD training protocol, Adam-only path (cases C1 and C4).
+"""The FFVD training protocol.
 
 Counterpart of ``ffvd_tpu/inference/trainer.py``.  Per outer iteration the
-reference (models.py:142-197) runs an SG-HMC phase, a window snapshot, an
-optional particle-Gibbs sweep and one Adam step on the nll.  When the case
-has no SG-HMC leaves and no particle Gibbs (C1, C4) only the Adam step
-remains, and it draws no random numbers: the nll trace is a deterministic
-function of the warm start.  The sampler cases raise at construction until
-ROADMAP Queue 1 items 6-7 port them.
+reference (models.py:142-197) runs:
+
+  1. an SG-HMC phase: 1 burn-in + 10×(burn-in + sample) = 21 sub-steps on
+     the SG-HMC-labelled leaves, each a full nll-gradient evaluation
+     (base_model.py:915-925);
+  2. a snapshot of those leaves into a ring-buffer window of 64
+     (base_model.py:927-933);
+  3. one Adam step on the nll, with the SG-HMC leaves fed from a random
+     window slot (base_model.py:944-950).
+
+A case without SG-HMC leaves (C1, C4) skips 1-2 and draws no random numbers;
+a case without Adam leaves (C7) skips 3 and reports the nll after the
+sampler phase.  The random numbers come from the caller's
+``torch.Generator`` or are injected (``noise=``, ``feed=``), so the tests
+can feed both packages the same draws.  Particle Gibbs (C6), deep layers,
+minibatch windows and ds64 raise at construction until ROADMAP Queue 1
+items 7-9 port them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ffvd_tpu_torch.config import ADAM, SGHMC, FFVDConfig, partition_for
+from ffvd_tpu_torch.inference.sghmc import (SGHMCState, sghmc_init,
+                                            sghmc_step, tree_normals)
 from ffvd_tpu_torch.model.elbo import negative_elbo
-from ffvd_tpu_torch.model.params import GPSSMParams, SSMData
+from ffvd_tpu_torch.model.params import LEAF_PATHS, GPSSMParams, SSMData
+
+Leaves = Dict[str, torch.Tensor]
+
+# The SG-HMC phase's burn-in flags: B, (B, S)×10 (base_model.py:915-925).
+SUBSTEP_FLAGS = (True,) + (True, False) * 10
 
 
 def label_tree(cfg: FFVDConfig) -> Dict[str, str]:
@@ -42,27 +61,63 @@ def sanitize_grads(grads, clip):
             for g in grads]
 
 
+def _log_clip_bounds(clip):
+    """None → None, scalar c → (−c, c), or an explicit (lower, upper) pair
+    (FFVDConfig.log_clip_bounds)."""
+    if clip is None:
+        return None
+    if isinstance(clip, tuple):
+        return clip
+    return (-clip, clip)
+
+
+def clip_log_leaves(tree: Leaves, clip) -> Leaves:
+    """Clip the leaves whose path contains 'log' to the given bounds, the
+    fp32 overflow guard of SG-HMC-sampled hyperparameters.  Under
+    hyperparameter sampling that includes ``log_rchol``'s raw strictly-lower
+    entries, as in the JAX package.  No-op when clip is None."""
+    bounds = _log_clip_bounds(clip)
+    if bounds is None:
+        return tree
+    lo, hi = bounds
+    return {k: torch.clamp(v, lo, hi) if "log" in k else v
+            for k, v in tree.items()}
+
+
+class SubsetOps:
+    """Split/merge the leaves with one label (the SG-HMC leaves by default),
+    in ``LEAF_PATHS`` order, which is the JAX package's pytree order."""
+
+    def __init__(self, labels: Dict[str, str], target: str = SGHMC):
+        self.paths = tuple(k for k in LEAF_PATHS if labels[k] == target)
+
+    def split(self, params: GPSSMParams) -> Leaves:
+        leaves = params.leaves()
+        return {k: leaves[k] for k in self.paths}
+
+    def merge(self, sub: Leaves, into: GPSSMParams) -> GPSSMParams:
+        return GPSSMParams.from_leaves({**into.leaves(), **sub})
+
+
 @dataclasses.dataclass
 class TrainState:
     params: GPSSMParams
-    adam: torch.optim.Adam
+    adam: Optional[torch.optim.Adam]
     step: int = 0
+    sghmc: Optional[SGHMCState] = None
+    # (window_size, ...) snapshots of the SG-HMC leaves only, keyed by path
+    window: Leaves = dataclasses.field(default_factory=dict)
+    window_count: int = 0
 
 
 class Trainer:
-    """Runs the Adam-only FFVD training protocol for one config."""
+    """Runs the FFVD training protocol for one config."""
 
     def __init__(self, cfg: FFVDConfig, data: SSMData):
         if cfg.case_config.x_pg:
             raise NotImplementedError(
                 f"case {cfg.case_config.name} needs particle Gibbs, which is "
                 "not ported yet (ROADMAP Queue 1, item 7)")
-        self.labels = label_tree(cfg)
-        if any(l == SGHMC for l in self.labels.values()):
-            raise NotImplementedError(
-                f"case {cfg.case_config.name} (hyperparameter_sampling="
-                f"{cfg.hyperparameter_sampling}) samples leaves by SG-HMC, "
-                "which is not ported yet (ROADMAP Queue 1, item 6)")
         if cfg.n_layers > 1:
             raise NotImplementedError(
                 "deep transitions are not ported yet (ROADMAP Queue 1, "
@@ -78,6 +133,10 @@ class Trainer:
                 "(ROADMAP Queue 1, item 9)")
         self.cfg = cfg
         self.data = data
+        self.labels = label_tree(cfg)
+        self.has_sghmc = SGHMC in self.labels.values()
+        self.has_adam = ADAM in self.labels.values()
+        self.subset = SubsetOps(self.labels)
         self.nll_fn = functools.partial(
             negative_elbo,
             kernel_type=cfg.kernel_type, prior_type=cfg.prior_type,
@@ -88,44 +147,170 @@ class Trainer:
         # (base_model.py:188-194).
         self.adam_lr = cfg.adam_lr * 0.95 ** (1.0 / 1000.0)
 
+    # -- state ------------------------------------------------------------
+
     def init_state(self, params: GPSSMParams) -> TrainState:
-        """Copy ``params`` into trainable leaves; Adam covers the 'adam'
-        leaves only, so frozen leaves (u in C4) get no update."""
+        """Copy ``params`` into fresh leaves; Adam covers the 'adam' leaves
+        only, so frozen leaves get no update and SG-HMC leaves move only by
+        the sampler."""
         leaves = {k: v.detach().clone().requires_grad_(self.labels[k] == ADAM)
                   for k, v in params.leaves().items()}
         # torch.optim.Adam is optax.adam's formula: b1=0.9, b2=0.999,
         # bias-corrected moments, eps=1e-8 added outside the square root.
-        adam = torch.optim.Adam(
+        # C7 has no Adam leaves, and Adam takes no empty parameter list.
+        adam = (torch.optim.Adam(
             [v for k, v in leaves.items() if self.labels[k] == ADAM],
             lr=self.adam_lr, betas=(0.9, 0.999), eps=1e-8)
-        return TrainState(params=GPSSMParams.from_leaves(leaves), adam=adam)
+            if self.has_adam else None)
+        params = GPSSMParams.from_leaves(leaves)
+        sub = self.subset.split(params)
+        w = self.cfg.window_size
+        return TrainState(
+            params=params, adam=adam,
+            sghmc=sghmc_init(sub) if self.has_sghmc else None,
+            window={k: v.new_zeros((w,) + tuple(v.shape))
+                    for k, v in sub.items()})
 
-    def outer_step(self, state: TrainState) -> torch.Tensor:
-        """One Adam step in place.  Returns the nll BEFORE the update
-        (trainer.py:430), detached."""
-        group = state.adam.param_groups[0]["params"]
-        nll = self.nll_fn(state.params, self.data)
-        grads = torch.autograd.grad(nll, group)
-        for p, g in zip(group, sanitize_grads(grads,
-                                              self.cfg.sghmc_grad_clip)):
-            p.grad = g
-        state.adam.step()
+    def chain_from_numpy(self, state: TrainState, sghmc: Dict[str, Dict],
+                         window: Dict[str, np.ndarray],
+                         window_count: int) -> TrainState:
+        """``state`` with the SG-HMC chain of the JAX package put in:
+        ``sghmc`` maps 'xi', 'g', 'g2', 'p' to numpy leaves keyed by path
+        (the JAX SGHMCState's fields, whole trees or the SG-HMC subset),
+        ``window`` maps each SG-HMC path to its (window_size, ...) array.
+        The leaves take the dtype and device of ``state.params``."""
+        ref = state.params.x
+        as_t = lambda a: torch.tensor(np.asarray(a), dtype=ref.dtype,
+                                      device=ref.device)
+        paths = self.subset.paths
+        chain = SGHMCState(**{f: {k: as_t(sghmc[f][k]) for k in paths}
+                              for f in ("xi", "g", "g2", "p")})
+        return dataclasses.replace(
+            state, sghmc=chain,
+            window={k: as_t(window[k]) for k in paths},
+            window_count=int(window_count))
+
+    # -- the SG-HMC leaves' gradient and chain ------------------------------
+
+    def subset_grads(self, sub: Leaves, params: GPSSMParams,
+                     data: Optional[SSMData] = None) -> Leaves:
+        """Sanitised nll gradient with respect to the SG-HMC leaves only;
+        the other leaves enter as constants, so autograd builds no backward
+        chain for them."""
+        data = self.data if data is None else data
+        fixed = {k: v.detach() for k, v in params.leaves().items()}
+        req = {k: v.detach().requires_grad_(True) for k, v in sub.items()}
+        with torch.enable_grad():
+            nll = self.nll_fn(GPSSMParams.from_leaves({**fixed, **req}), data)
+            grads = torch.autograd.grad(nll, list(req.values()))
+        return dict(zip(req, sanitize_grads(grads, self.cfg.sghmc_grad_clip)))
+
+    def sghmc_move(self, sub: Leaves, sstate: SGHMCState, params: GPSSMParams,
+                   burn_in: bool, noise: Optional[Leaves] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Tuple[Leaves, SGHMCState]:
+        """One sampler sub-step of the SG-HMC leaves ``sub`` (the rest of
+        ``params`` held fixed), then the log clip.  ``noise`` replaces the
+        normals drawn from ``generator``."""
+        cfg = self.cfg
+        grads = self.subset_grads(sub, params)
+        sub, sstate = sghmc_step(
+            sub, grads, sstate, epsilon=cfg.epsilon, mdecay=cfg.mdecay,
+            x_n=params.x.shape[0], burn_in=burn_in, p_clip=cfg.sghmc_p_clip,
+            spike_clip=cfg.sghmc_spike_clip, noise=noise, generator=generator)
+        return clip_log_leaves(sub, cfg.log_clip_bounds), sstate
+
+    def _sghmc_phase(self, params: GPSSMParams, sstate: SGHMCState,
+                     noise: Leaves) -> Tuple[GPSSMParams, SGHMCState]:
+        """The 21 sub-steps B, (B, S)×10, full batch, gradients with respect
+        to the SG-HMC leaves only (trainer.py:329-393, shallow branch)."""
+        sub = {k: v.detach() for k, v in self.subset.split(params).items()}
+        for i, flag in enumerate(SUBSTEP_FLAGS):
+            sub, sstate = self.sghmc_move(sub, sstate, params, flag,
+                                          {k: v[i] for k, v in noise.items()})
+        return self.subset.merge(sub, params), sstate
+
+    # -- one outer iteration ----------------------------------------------
+
+    def _feed_params(self, state: TrainState, generator, feed) -> GPSSMParams:
+        """The params with the SG-HMC leaves replaced by window slot i,
+        i ~ U[0, max(count, 1)) drawn after the snapshot (trainer.py:424)."""
+        dev = state.params.x.device
+        if feed is None:
+            if generator is None:
+                raise ValueError("the window feed needs a torch.Generator or "
+                                 "an injected index (feed=)")
+            i = torch.randint(0, max(state.window_count, 1), (1,),
+                              generator=generator,
+                              device=generator.device).to(dev)
+        else:
+            i = torch.as_tensor([int(feed)], device=dev)
+        return self.subset.merge(
+            {k: torch.index_select(w, 0, i)[0]
+             for k, w in state.window.items()}, state.params)
+
+    def outer_step(self, state: TrainState,
+                   generator: Optional[torch.Generator] = None,
+                   noise: Optional[Leaves] = None,
+                   feed: Optional[int] = None) -> torch.Tensor:
+        """One outer iteration, updating ``state`` in place.  Returns the
+        nll, detached: at the window-fed point before the Adam update
+        (trainer.py:430), or after the sampler phase when there is no Adam
+        leaf (C7, :434).  ``noise`` (path → (21, ...)) and ``feed`` replace
+        the draws from ``generator``."""
+        if self.has_sghmc:
+            if noise is None:   # the 21 sub-steps' normals, drawn up front
+                noise = tree_normals(self.subset.split(state.params),
+                                     generator, (len(SUBSTEP_FLAGS),))
+            state.params, state.sghmc = self._sghmc_phase(
+                state.params, state.sghmc, noise)
+            # Window snapshot as a ring buffer (base_model.py:927-933).
+            slot = state.step % self.cfg.window_size
+            sub = self.subset.split(state.params)
+            with torch.no_grad():
+                for k, w in state.window.items():
+                    w[slot] = sub[k]
+            state.window_count = min(state.window_count + 1,
+                                     self.cfg.window_size)
+        if self.has_adam:
+            feed_params = (self._feed_params(state, generator, feed)
+                           if self.has_sghmc else state.params)
+            group = state.adam.param_groups[0]["params"]
+            with torch.enable_grad():
+                nll = self.nll_fn(feed_params, self.data)
+                grads = torch.autograd.grad(nll, group)
+            for p, g in zip(group, sanitize_grads(grads,
+                                                  self.cfg.sghmc_grad_clip)):
+                p.grad = g
+            state.adam.step()
+        else:
+            with torch.no_grad():
+                nll = self.nll_fn(state.params, self.data)
         state.step += 1
         return nll.detach()
 
     def run(self, state: TrainState, num_iterations: int,
-            chunk_size: int = 500,
-            nan_check: bool = True) -> Tuple[TrainState, torch.Tensor]:
+            chunk_size: int = 500, nan_check: bool = True,
+            generator: Optional[torch.Generator] = None,
+            draws: Optional[Iterable[dict]] = None
+            ) -> Tuple[TrainState, torch.Tensor]:
         """Run ``num_iterations`` outer iterations (the reference runs
         2×cfg.iterations, models.py:142).  Returns (state, nll_trace).
 
-        ``nan_check``: per chunk of ``chunk_size`` iterations, raise with the
-        failing iteration index and a finite-by-block diagnosis."""
+        ``generator`` draws the sampler noise and the window feed;
+        ``draws``, one dict of ``outer_step`` keywords (``noise``, ``feed``)
+        per iteration, replaces it.  ``nan_check``: per chunk of
+        ``chunk_size`` iterations, raise with the failing iteration index
+        and a finite-by-block diagnosis."""
+        draws = iter(draws) if draws is not None else None
         traces = []
         done = 0
         while done < num_iterations:
             n = min(chunk_size, num_iterations - done)
-            nlls = torch.stack([self.outer_step(state) for _ in range(n)])
+            nlls = torch.stack([
+                self.outer_step(state, generator,
+                                **(next(draws) if draws is not None else {}))
+                for _ in range(n)])
             if nan_check and not bool(torch.isfinite(nlls).all()):
                 bad = int(torch.nonzero(~torch.isfinite(nlls))[0, 0])
                 diag = {k: bool(torch.isfinite(v).all())

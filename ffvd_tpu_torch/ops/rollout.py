@@ -6,7 +6,11 @@ mean + √max(var+Q, 0)·ε), for every sample at once.  On CUDA tensors it
 launches ``csrc/rollout.cu`` (the hand-written Hopper kernel that replaces
 ``ffvd_tpu/ops/pallas_rollout.py::_rollout_kernel``) or raises; on CPU
 tensors it runs ``rollout_reference``, the plain PyTorch version with the
-same signature and the same arithmetic.
+same signature and the same arithmetic.  ``rollout_batched`` (plain
+version ``rollout_reference_batched``) takes its own parameters for each
+sample, as a thinned SG-HMC posterior has them, and is still one launch:
+the kernel reads each parameter array at a per-sample stride, 0 when the
+samples share it.
 
 The noise ε is either given (``noise`` of shape (S, T, D), so tests can feed
 both packages the same draws) or drawn from Philox4x32-10 keyed by a 64-bit
@@ -99,31 +103,47 @@ def draw_seed(generator: Optional[torch.Generator]) -> int:
 # Shared preparation and the plain version
 # ---------------------------------------------------------------------------
 
-def _prepare(kparams: KernelParams, z, lm_inv, q_sqrt):
+def _exp(t: torch.Tensor, batched: bool) -> torch.Tensor:
+    """exp, per sample when ``batched``: a vectorised CPU loop may round a
+    sample's entries otherwise than the same entries of a shared (unbatched)
+    tensor, and per-sample parameters equal to shared ones must give the
+    shared result bit for bit."""
+    return torch.stack([torch.exp(v) for v in t]) if batched else torch.exp(t)
+
+
+def _prepare(kparams: KernelParams, z, lm_inv, q_sqrt, batched=False):
     """The kernel's inputs: Z/ℓ (D, M, Din), 1/ℓ (D, Din), σ² (D,), the
     σ²-folded lower triangle of Lm⁻¹ (as pallas_rollout.py:157 folds it)
-    and the upper triangle of q_sqrt (q_sqrt = chol(H)⁻ᵀ is upper)."""
-    ils = torch.exp(-kparams.log_lengthscales)
-    zs = z[None, :, :] * ils[:, None, :]
-    kvar = torch.exp(kparams.log_variance)
-    lminv = torch.tril(lm_inv) * kvar[:, None, None]
+    and the upper triangle of q_sqrt (q_sqrt = chol(H)⁻ᵀ is upper).
+    ``batched``: every input has a leading sample axis."""
+    ils = _exp(-kparams.log_lengthscales, batched)
+    zs = z[..., None, :, :] * ils[..., :, None, :]
+    kvar = _exp(kparams.log_variance, batched)
+    lminv = torch.tril(lm_inv) * kvar[..., :, None, None]
     qsq = None if q_sqrt is None else torch.triu(q_sqrt)
     return zs, ils, kvar, lminv, qsq
 
 
-def _check_inputs(z, lm_inv, u_val, q_sqrt, q, x0, controls, num_samples,
-                  noise):
-    m, din = z.shape
+def _check_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls,
+                  num_samples, noise, batched=False):
+    """Shapes, devices and dtypes of a call.  ``batched``: every parameter
+    has a leading sample axis of ``num_samples``."""
+    lead = (num_samples,) if batched else ()
+    m, din = z.shape[-2:]
     d = x0.shape[-1]
     cu = controls.shape[1]
     t_len = controls.shape[0]
     if din != d + cu:
         raise ValueError(f"z has {din} input columns, expected D + U = "
                          f"{d} + {cu}")
-    want = {"lm_inv": (lm_inv, (d, m, m)), "u_val": (u_val, (m, d)),
-            "q": (q, (d,)), "x0": (x0, (d,))}
+    want = {"z": (z, (m, din)), "lm_inv": (lm_inv, (d, m, m)),
+            "u_val": (u_val, (m, d)), "q": (q, (d,)), "x0": (x0, (d,))}
+    if batched:
+        want["log_variance"] = (kparams.log_variance, (d,))
+        want["log_lengthscales"] = (kparams.log_lengthscales, (d, din))
     if q_sqrt is not None:
         want["q_sqrt"] = (q_sqrt, (d, m, m))
+    want = {k: (t, lead + shape) for k, (t, shape) in want.items()}
     if noise is not None:
         want["noise"] = (noise, (num_samples, t_len, d))
     for name, (t, shape) in want.items():
@@ -138,6 +158,34 @@ def _check_inputs(z, lm_inv, u_val, q_sqrt, q, x0, controls, num_samples,
                              f"{z.dtype} on {z.device}")
 
 
+def _reference_steps(zs, ils, kvar, lminv, qsq, u_val, q, x0, controls,
+                     noise):
+    """The recursion of the plain version over T, with every parameter
+    per sample: zs (S, D, M, Din), ils (S, D, Din), kvar (S, D), lminv and
+    qsq (S, D, M, M) or None, u_val (S, M, D), q (S, D), x0 (S, D).  The
+    triangular products are elementwise products summed over the last axis,
+    so a sample's result does not depend on whether its parameters are
+    shared with the others (an expanded view) or its own."""
+    s = x0.shape[0]
+    x = x0
+    xs, vs = [], []
+    for t in range(controls.shape[0]):
+        xc = torch.cat([x, controls[t][None, :].expand(s, -1)], dim=1)
+        diff = zs - (xc[:, None, :] * ils)[:, :, None, :]     # (S, D, M, Din)
+        e = torch.exp(-0.5 * torch.sum(diff * diff, dim=-1))  # (S, D, M)
+        a = torch.sum(lminv * e[:, :, None, :], dim=-1)       # (S, D, M)
+        mean = torch.sum(a * u_val.mT, dim=-1)                # (S, D)
+        var = kvar - torch.sum(a * a, dim=-1)
+        if qsq is not None:
+            w = torch.sum(qsq.mT * a[:, :, None, :], dim=-1)  # q_sqrtᵀ a
+            var = var + torch.sum(w * w, dim=-1)
+        var_tot = torch.clamp(var + q, min=0.0)
+        x = (x + mean) + noise[:, t] * torch.sqrt(var_tot)
+        xs.append(x)
+        vs.append(var_tot)
+    return torch.stack(xs, dim=1), torch.stack(vs, dim=1)
+
+
 def rollout_reference(kparams: KernelParams, z: torch.Tensor,
                       lm_inv: torch.Tensor, u_val: torch.Tensor,
                       q_sqrt: Optional[torch.Tensor], q: torch.Tensor,
@@ -147,31 +195,37 @@ def rollout_reference(kparams: KernelParams, z: torch.Tensor,
     """Plain PyTorch rollout: a loop over T, batched over S and D.  Same
     signature and arithmetic as ``rollout``.  Returns (xs, var_tot), each
     (S, T, D)."""
-    _check_inputs(z, lm_inv, u_val, q_sqrt, q, x0, controls, num_samples,
-                  noise)
-    zs, ils, kvar, lminv, qsq = _prepare(kparams, z, lm_inv, q_sqrt)
+    _check_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls,
+                  num_samples, noise)
     s, d = num_samples, x0.shape[0]
-    t_len = controls.shape[0]
     if noise is None:
-        noise = philox_normals(draw_seed(generator), (s, t_len, d), z.dtype,
+        noise = philox_normals(draw_seed(generator), (s, controls.shape[0], d),
+                               z.dtype, z.device)
+    shared = _prepare(kparams, z, lm_inv, q_sqrt) + (u_val, q, x0)
+    per_sample = [None if t is None else t.expand((s,) + t.shape)
+                  for t in shared]
+    return _reference_steps(*per_sample, controls, noise)
+
+
+def rollout_reference_batched(kparams: KernelParams, z: torch.Tensor,
+                              lm_inv: torch.Tensor, u_val: torch.Tensor,
+                              q_sqrt: Optional[torch.Tensor], q: torch.Tensor,
+                              x0: torch.Tensor, controls: torch.Tensor, *,
+                              noise: Optional[torch.Tensor] = None,
+                              generator: Optional[torch.Generator] = None):
+    """Plain version of ``rollout_batched``: every parameter has a leading
+    sample axis S.  With the same parameters for every sample it equals
+    ``rollout_reference`` bit for bit (same arithmetic, same Philox counter
+    (s, t, d))."""
+    s = x0.shape[0]
+    _check_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls, s,
+                  noise, batched=True)
+    if noise is None:
+        noise = philox_normals(draw_seed(generator),
+                               (s, controls.shape[0], x0.shape[1]), z.dtype,
                                z.device)
-    x = x0[None, :].expand(s, d)
-    xs, vs = [], []
-    for t in range(t_len):
-        xc = torch.cat([x, controls[t][None, :].expand(s, -1)], dim=1)
-        diff = zs[:, :, None, :] - (xc[None, :, :] * ils[:, None, :])[:, None]
-        e = torch.exp(-0.5 * torch.sum(diff * diff, dim=-1))  # (D, M, S)
-        a = lminv @ e                                          # (D, M, S)
-        mean = torch.einsum("dms,md->sd", a, u_val)
-        var = kvar[None, :] - torch.sum(a * a, dim=1).T
-        if qsq is not None:
-            w = qsq.mT @ a
-            var = var + torch.sum(w * w, dim=1).T
-        var_tot = torch.clamp(var + q[None, :], min=0.0)
-        x = (x + mean) + noise[:, t] * torch.sqrt(var_tot)
-        xs.append(x)
-        vs.append(var_tot)
-    return torch.stack(xs, dim=1), torch.stack(vs, dim=1)
+    return _reference_steps(*_prepare(kparams, z, lm_inv, q_sqrt, True),
+                            u_val, q, x0, controls, noise)
 
 
 # ---------------------------------------------------------------------------
@@ -217,20 +271,40 @@ def pack_lower_rows(a: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_inputs(kparams: KernelParams, z, lm_inv, u_val, q_sqrt, q, x0,
-                  controls, num_samples: int):
+                  controls, num_samples: int, batched: bool = False):
     """The kernel's input arrays before the noise, in its argument order:
     x0 per sample, Z/ℓ, 1/ℓ, σ², σ²Lm⁻¹ packed by lower rows, U, Q, the
     controls (None when U = 0) and q_sqrtᵀ packed by lower rows (row k is
-    column k of the upper q_sqrt) or None."""
-    zs, ils, kvar, lminv, qsq = _prepare(kparams, z, lm_inv, q_sqrt)
+    column k of the upper q_sqrt) or None.  ``batched``: every input has a
+    leading sample axis and the arrays keep it (``sample_strides``)."""
+    zs, ils, kvar, lminv, qsq = _prepare(kparams, z, lm_inv, q_sqrt, batched)
+    if not batched:
+        x0 = x0[None, :].expand(num_samples, x0.shape[0])
     return {
-        "x0": x0[None, :].expand(num_samples, x0.shape[0]).contiguous(),
+        "x0": x0.contiguous(),
         "zs": zs.contiguous(), "ils": ils.contiguous(),
         "kvar": kvar.contiguous(), "lp": pack_lower_rows(lminv),
         "u_val": u_val.contiguous(), "q": q.contiguous(),
         "controls": controls if controls.shape[1] > 0 else None,
         "qp": None if qsq is None else pack_lower_rows(qsq.mT),
     }
+
+
+# The kernel's parameter arrays that may be per sample, in the order of its
+# stride arguments.
+STRIDED = ("zs", "ils", "kvar", "lp", "u_val", "q", "qp")
+
+
+def sample_strides(args: dict, batched: bool) -> Tuple[int, ...]:
+    """Elements between two samples' slices of each ``STRIDED`` array: the
+    size of one slice when ``batched``, else 0 (one set for all samples).
+    The kernel takes them as 32-bit unsigned integers."""
+    strides = tuple(args[k][0].numel() if batched and args[k] is not None
+                    else 0 for k in STRIDED)
+    if max(strides) >= 2 ** 32:
+        raise ValueError(f"a per-sample slice of {max(strides)} elements "
+                         "exceeds the kernel's 32-bit stride")
+    return strides
 
 
 _ptr = ctypes.c_void_p
@@ -251,8 +325,9 @@ def _library() -> ctypes.CDLL:
         from ffvd_tpu_torch.utils.cuda_build import load
         lib = load("rollout")
         for fn in (lib.ffvd_rollout_f32, lib.ffvd_rollout_f64):
-            fn.argtypes = [_ptr] * 12 + [ctypes.c_int] * 10 + [ctypes.c_uint64,
-                                                               _ptr]
+            fn.argtypes = ([_ptr] * 12 + [ctypes.c_int] * 10
+                           + [ctypes.c_uint] * len(STRIDED)
+                           + [ctypes.c_uint64, _ptr])
             fn.restype = ctypes.c_int
         lib.ffvd_rollout_limits.argtypes = [ctypes.c_int, _ptr, _ptr]
         lib.ffvd_rollout_limits.restype = ctypes.c_int
@@ -307,21 +382,57 @@ def rollout(kparams: KernelParams, z: torch.Tensor, lm_inv: torch.Tensor,
         return rollout_reference(kparams, z, lm_inv, u_val, q_sqrt, q, x0,
                                  controls, num_samples, noise=noise,
                                  generator=generator)
+    _check_device(z)
+    _check_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls,
+                  num_samples, noise)
+    return _launch(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls,
+                   num_samples, noise, generator, batched=False)
+
+
+def rollout_batched(kparams: KernelParams, z: torch.Tensor,
+                    lm_inv: torch.Tensor, u_val: torch.Tensor,
+                    q_sqrt: Optional[torch.Tensor], q: torch.Tensor,
+                    x0: torch.Tensor, controls: torch.Tensor, *,
+                    noise: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None):
+    """``rollout`` with its own parameters for each of S samples (a thinned
+    SG-HMC posterior): kparams (S, D), (S, D, Din); z (S, M, Din); lm_inv
+    and q_sqrt (S, D, M, M); u_val (S, M, D); q (S, D); x0 (S, D); controls
+    (T, U) shared.  One kernel launch for all S on CUDA tensors (counted in
+    ``rollout.launches``); ``rollout_reference_batched`` on CPU tensors."""
+    if z.device.type == "cpu":
+        return rollout_reference_batched(kparams, z, lm_inv, u_val, q_sqrt, q,
+                                         x0, controls, noise=noise,
+                                         generator=generator)
+    _check_device(z)
+    s = x0.shape[0]
+    _check_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls, s,
+                  noise, batched=True)
+    return _launch(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls, s,
+                   noise, generator, batched=True)
+
+
+def _check_device(z: torch.Tensor):
     if z.device.type != "cuda":
         raise ValueError(f"rollout runs on cuda or cpu, not {z.device}")
     if z.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"rollout kernel takes float32/float64, not {z.dtype}")
-    _check_inputs(z, lm_inv, u_val, q_sqrt, q, x0, controls, num_samples,
-                  noise)
+
+
+def _launch(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls, s, noise,
+            generator, batched):
+    """One launch of the kernel for S samples, shared or per-sample inputs
+    (checked by the caller).  Raises when the launch fails."""
     dtype, device = z.dtype, z.device
-    s, d, m = num_samples, x0.shape[0], z.shape[0]
+    d, m = x0.shape[-1], z.shape[-2]
     t_len, cu = controls.shape
     itemsize = z.element_size()
     max_threads, smem_optin = kernel_limits(device, itemsize)
     plan = rollout_plan(d, m, d + cu, itemsize, smem_optin, max_threads)
     seed = draw_seed(generator) if noise is None else 0
     args = kernel_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls,
-                         s)
+                         s, batched)
+    strides = sample_strides(args, batched)
     args["noise"] = noise
     xs = torch.empty((s, t_len, d), dtype=dtype, device=device)
     vs = torch.empty_like(xs)
@@ -332,7 +443,7 @@ def rollout(kparams: KernelParams, z: torch.Tensor, lm_inv: torch.Tensor,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*ptrs, xs.data_ptr(), vs.data_ptr(), s, t_len, d, m, cu,
                  plan.cluster, plan.dims_per_cta, plan.threads,
-                 plan.smem_bytes, int(plan.resident), seed, stream)
+                 plan.smem_bytes, int(plan.resident), *strides, seed, stream)
     if err != 0:
         raise RuntimeError(f"rollout kernel launch failed ({plan}): "
                            + _LAUNCH_ERRORS.get(err, f"CUDA error {err}"))

@@ -10,7 +10,9 @@ Tolerances: fp64 rtol 1e-9, atol 1e-12 over all steps (summation order
 only); fp32 rtol 1e-4, atol 1e-5 over the first 10 steps.  Beside the small
 default shapes, the cases cover each branch of ``rollout_plan``: a cluster
 of six CTAs (D=6), a CTA that owns two dims (D=9), resident factors at
-M=200 in fp32 and global ones at M=320 in fp64.
+M=200 in fp32 and global ones at M=320 in fp64; and the per-sample mode
+(``rollout_batched``, a thinned SG-HMC posterior) on the resident and
+global paths.
 """
 
 import pytest
@@ -145,6 +147,83 @@ def test_in_kernel_noise_is_the_plain_philox_stream(cuda):
     torch.testing.assert_close(
         z, ro.philox_normals(42, (4096, 1, 1), torch.float32,
                              cuda).reshape(-1), rtol=1e-5, atol=1e-5)
+
+
+def _batched_inputs(device, dtype, d, m, t_len, samples, seed=0):
+    """Per-sample parameters: ``_inputs``' hypers, Z, U, q_sqrt, Q and x0
+    perturbed from a seed for each sample, each with its own Lm⁻¹."""
+    g = torch.Generator().manual_seed(seed + 100)
+    per = []
+    for i in range(samples):
+        kp, z, _, u, q_sqrt, q, x0, ctrl = _inputs("cpu", torch.float64, d=d,
+                                                   m=m, t_len=t_len,
+                                                   seed=seed)
+        jig = lambda t, s: t + s * torch.randn(t.shape, generator=g,
+                                               dtype=torch.float64)
+        kp = KernelParams(jig(kp.log_variance, 0.2),
+                          jig(kp.log_lengthscales, 0.1))
+        z = jig(z, 0.05)
+        lm_inv = kernel_precal("SquaredExponential", kp, z,
+                               jitter=1e-2).lm_inv
+        per.append((kp, z, lm_inv, jig(u, 0.1), jig(q_sqrt, 0.01),
+                    q * torch.exp(jig(torch.zeros_like(q), 0.3)),
+                    jig(x0, 0.2)))
+    move = lambda ts: torch.stack(ts).to(device, dtype).contiguous()
+    kps = [p[0] for p in per]
+    return dict(kparams=KernelParams(move([k.log_variance for k in kps]),
+                                     move([k.log_lengthscales for k in kps])),
+                z=move([p[1] for p in per]), lm_inv=move([p[2] for p in per]),
+                u_val=move([p[3] for p in per]),
+                q_sqrt=move([torch.triu(p[4]) for p in per]),
+                q=move([p[5] for p in per]), x0=move([p[6] for p in per]),
+                controls=ctrl.to(device, dtype).contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("with_q", [True, False])
+@pytest.mark.parametrize("d,m,resident", [(4, 37, True), (6, 37, True),
+                                          (4, 320, False)])
+def test_per_sample_kernel_matches_plain_version(cuda, dtype, with_q, d, m,
+                                                 resident):
+    """``rollout_batched``: one launch for S samples with their own
+    parameters, against ``rollout_reference_batched``, on the resident path
+    (D=4 and D=6 at M=37) and the global one (M=320)."""
+    t_len, samples = 12, 5
+    args = _batched_inputs(cuda, dtype, d, m, t_len, samples)
+    if not with_q:
+        args["q_sqrt"] = None
+    noise = 0.1 * torch.randn(samples, t_len, d, dtype=dtype, device=cuda)
+    before = ro.rollout.launches
+    xk, vk = ro.rollout_batched(**args, noise=noise)
+    torch.cuda.synchronize()
+    assert ro.rollout.launches == before + 1
+    plan = ro.rollout.last_plan
+    assert plan.resident is resident
+    xr, vr = ro.rollout_reference_batched(**args, noise=noise)
+    if dtype == torch.float64:
+        tol, h = dict(rtol=1e-9, atol=1e-12), t_len
+    else:
+        tol, h = dict(rtol=1e-4, atol=1e-5), 10
+    torch.testing.assert_close(xk[:, :h], xr[:, :h], **tol)
+    torch.testing.assert_close(vk[:, :h], vr[:, :h], **tol)
+    # each sample ran on its own parameters
+    assert not torch.allclose(vk[0], vk[1])
+
+
+def test_per_sample_kernel_with_identical_samples_is_the_shared_kernel(cuda):
+    """Per-sample strides over S copies of one parameter set give the shared
+    launch's result bit for bit (same kernel, same Philox counters)."""
+    args = _inputs(cuda, torch.float64, d=4, m=37)
+    kp, z, lm_inv, u, q_sqrt, q, x0, ctrl = args
+    s = 6
+    rep = lambda t: t[None].expand((s,) + t.shape).contiguous()
+    xs, vs = ro.rollout(*args, s, generator=torch.Generator().manual_seed(2))
+    xb, vb = ro.rollout_batched(
+        KernelParams(rep(kp.log_variance), rep(kp.log_lengthscales)), rep(z),
+        rep(lm_inv), rep(u), rep(q_sqrt), rep(q), rep(x0), ctrl,
+        generator=torch.Generator().manual_seed(2))
+    torch.cuda.synchronize()
+    assert torch.equal(xs, xb) and torch.equal(vs, vb)
 
 
 def test_kernel_wrapper_rejects_bad_inputs(cuda):
