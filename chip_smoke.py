@@ -23,8 +23,16 @@ that each print one JSON line:
 4b. the SG-HMC paths in fp32: ballbeam C5 for 100 iterations and C2 for
    20, each then ``evaluate()`` (thinning, per-sample q(U), one launch),
    with the evaluation split into its stages;
+4c. the particle-Gibbs path in fp32: ballbeam C6 (P=100) for 20
+   iterations and ``evaluate()``, the sweep timed and split, one sweep's
+   mixing statistics, and one sweep's recursion and backtrack run under
+   ``torch.cuda.set_sync_debug_mode("error")``;
+4d. the LinearK path in fp32: ballbeam C4 with ``kernel_type="LinearK"``
+   for 20 iterations and ``evaluate()`` (the torch recursion, no kernel);
 5. 200 fp64 training iterations on cuda against the same on the CPU;
 5b. 5 fp64 C5 iterations with injected sampler draws, cuda against CPU;
+5c. 3 fp64 C6 iterations with injected sweep draws, cuda against CPU, and
+   one sweep's resampling indices on both;
 6. kernel timing with CUDA events at S=10 and S=64, shared and per-sample
    inputs, with the launch plan, and one ``{"kernels": [...]}`` line.
 
@@ -39,6 +47,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -510,6 +519,237 @@ def phase_sampler_paths(torch, ro, card):
     return {"C5": c5, "C2": c2}
 
 
+def _events_ms(torch, fn):
+    """ms of one call of ``fn`` between two CUDA events (the sweep is
+    host-bound, so this is its wall time on the stream)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def _kernels_in(torch, fn):
+    """(device kernels, their summed device ms) of one call of ``fn``, by
+    the profiler's CUDA activity; (None, None) when it shows no device
+    events."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = sum(e.count for e in dev)
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)) for e in dev)
+    return (n, us / 1e3) if n else (None, None)
+
+
+def phase_pg_path(torch, ro, card):
+    """Phase 4c: ballbeam C6 in fp32 on the card at full width (D=4, M=100,
+    N=500, P=100): ``fit(20)`` (the protocol runs 4000) and ``evaluate()``,
+    with the launch count set to 0 just before and read just after; then
+    the sweep timed (median of 7 after a warm-up, CUDA events) and split
+    into draws, Kmm factorisation and recursion with backtrack; one
+    sweep's statistics; and the recursion and backtrack under
+    ``set_sync_debug_mode("error")``, ``kernel_precal`` outside it."""
+    import dataclasses
+    from ffvd_tpu_torch.api import FFVDModel
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.inference import particle_gibbs as pg
+    from ffvd_tpu_torch.model.conditionals import kernel_precal
+    cfg = FFVDConfig(dataset="ballbeam", case=6)
+    iterations = 20
+    ro.rollout.launches = 0          # this path starts here
+    model = FFVDModel(cfg, device="cuda")
+    check(model.dtype == torch.float32, f"C6 dtype {model.dtype}")
+    x0 = model.params.x.detach().clone()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    model.fit(iterations)
+    nll = model.nll_trace.cpu()
+    train_s = time.time() - t0
+    launches_fit = ro.rollout.launches
+    t1 = time.time()
+    res = model.evaluate()
+    torch.cuda.synchronize()
+    eval_ms = (time.time() - t1) * 1e3
+    launches_eval = ro.rollout.launches - launches_fit
+    x_moved = float((model.params.x - x0).abs().max())
+
+    params, data, gen = model.params, model.data, model.train_generator
+    sweep = model.trainer.pg_fn
+    sweep(params, gen, data)                             # warm-up
+    sweep_ms = [_events_ms(torch, lambda: sweep(params, gen, data))
+                for _ in range(7)]
+    t_wall = time.time()
+    for _ in range(3):
+        sweep(params, gen, data)
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t_wall) * 1e3 / 3
+    draws = pg.pg_draws(cfg, params, gen)
+    precal = lambda: kernel_precal(cfg.kernel_type, params.kernel, params.z,
+                                   cfg.jitter)
+    pre = precal()
+    median5 = lambda fn: statistics.median(_events_ms(torch, fn)
+                                           for _ in range(5))
+    split = {
+        "draws": median5(lambda: pg.pg_draws(cfg, params, gen)),
+        "kernel_precal": median5(precal),
+        "recursion_and_backtrack": median5(lambda: pg.pg_ancestor_style(
+            cfg, params, pre, data, draws)),
+    }
+    try:
+        kernels, device_ms = _kernels_in(torch, lambda: pg.pg_ancestor_style(
+            cfg, params, pre, data, draws))
+    except Exception as exc:   # the profiler is untried on that machine
+        kernels, device_ms = f"profiler failed: {exc!r}", None
+    _, stats = pg.make_pg_fn(cfg, data, with_stats=True)(params, gen)
+    stats = {k: float(v) for k, v in stats.items()}
+
+    # The recursion and backtrack must not read back to the host (capture
+    # in a CUDA graph needs that); kernel_precal's retry check and the
+    # draws are outside.
+    ref_cfg = dataclasses.replace(cfg, pg_ancestor_trace=False)
+    ref_draws = pg.pg_draws(ref_cfg, params, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new_x, _, _ = pg.pg_ancestor_style(cfg, params, pre, data, draws)
+        ref_x, _, _ = pg.pg_reference_style(ref_cfg, params, pre, data,
+                                            ref_draws)
+        sync_error = None
+    except RuntimeError as exc:
+        sync_error = repr(exc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    n = params.n_transitions
+    out = {"card": card, "dataset": "ballbeam", "case": "C6",
+           "precision": "fp32", "P": cfg.pg_particles, "n": n,
+           "iterations": int(nll.numel()),
+           "protocol_iterations": cfg.total_iterations,
+           "train_seconds": train_s, "train_it_per_s": nll.numel() / train_s,
+           "eval_ms": eval_ms, "rmse": res["rmse"], "nll": res["nll"],
+           "nll_first": float(nll[0]), "nll_last": float(nll[-1]),
+           "x_max_move_from_warm_start": x_moved,
+           "sweep_ms_median": statistics.median(sweep_ms),
+           "sweep_ms": sweep_ms,
+           "sweep_wall_ms": wall_ms, "sweep_split_ms": split,
+           "sweep_kernels": kernels,
+           "sweep_kernels_per_step": (kernels / n if isinstance(kernels, int)
+                                      else None),
+           "sweep_device_ms": device_ms,
+           "sweep_device_busy": (device_ms / split["recursion_and_backtrack"]
+                                 if device_ms else None),
+           "stats": stats, "sync_debug_error": sync_error,
+           "rollout_launches_fit": launches_fit,
+           "rollout_launches_evaluate": launches_eval}
+    emit("pg_path", **out)
+    check(sync_error is None, f"C6 sweep synchronised: {sync_error}")
+    check(bool(torch.isfinite(new_x).all() and torch.isfinite(ref_x).all()),
+          "C6 sweep: non-finite x")
+    check(bool(torch.isfinite(nll).all()), "C6: non-finite nll")
+    check(x_moved > 0, "C6: x did not move from the warm start")
+    check(math.isfinite(res["rmse"]) and math.isfinite(res["nll"]),
+          f"C6: non-finite RMSE/NLL {res['rmse']}/{res['nll']}")
+    check(launches_fit == 0 and launches_eval == 1,
+          f"C6: rollout launches {launches_fit} in fit, {launches_eval} in "
+          "evaluate")
+    return out
+
+
+def phase_linear_path(torch, ro, card):
+    """Phase 4d: ballbeam C4 with the linear kernel, fp32: 20 iterations
+    and ``evaluate()``, which rolls out by the torch recursion and launches
+    no kernel."""
+    from ffvd_tpu_torch.api import FFVDModel
+    from ffvd_tpu_torch.config import FFVDConfig
+    cfg = FFVDConfig(dataset="ballbeam", case=4, kernel_type="LinearK")
+    ro.rollout.launches = 0
+    model = FFVDModel(cfg, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    model.fit(20)
+    nll = model.nll_trace.cpu()
+    train_s = time.time() - t0
+    t1 = time.time()
+    res = model.evaluate()
+    torch.cuda.synchronize()
+    eval_ms = (time.time() - t1) * 1e3
+    launches = ro.rollout.launches
+    out = {"card": card, "dataset": "ballbeam", "case": "C4",
+           "kernel_type": "LinearK", "precision": "fp32",
+           "iterations": int(nll.numel()), "train_seconds": train_s,
+           "train_it_per_s": nll.numel() / train_s, "eval_ms": eval_ms,
+           "rmse": res["rmse"], "nll": res["nll"],
+           "nll_first": float(nll[0]), "nll_last": float(nll[-1]),
+           "rollout_launches": launches}
+    emit("linear_path", **out)
+    check(bool(torch.isfinite(nll).all()), "LinearK: non-finite nll")
+    check(math.isfinite(res["rmse"]) and math.isfinite(res["nll"]),
+          f"LinearK: non-finite RMSE/NLL {res['rmse']}/{res['nll']}")
+    check(launches == 0, f"LinearK: {launches} rollout kernel launches")
+    return out
+
+
+def phase_fp64_pg(torch):
+    """Phase 5c: ballbeam C6 in fp64, 3 outer iterations with the same
+    injected sweep draws on cuda and on the CPU: the nll traces and every
+    leaf within rtol 1e-9; and one sweep at the warm start on both, whose
+    resampling indices must be identical."""
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.data import create_dataset, load_warmstart
+    from ffvd_tpu_torch.inference import particle_gibbs as pg
+    from ffvd_tpu_torch.inference.trainer import Trainer
+    from ffvd_tpu_torch.model.conditionals import kernel_precal
+    from ffvd_tpu_torch.model.params import (SSMData,
+                                             init_params_from_warmstart)
+    t0 = time.time()
+    cfg = FFVDConfig(dataset="ballbeam", case=6)
+    ds = create_dataset("ballbeam")
+    ws = load_warmstart("ballbeam")
+    g = torch.Generator().manual_seed(66)
+    draws, runs = None, {}
+    for dev in ("cpu", "cuda"):
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+        data = SSMData(y=as_t(ds.y_train), control=as_t(ds.control))
+        tr = Trainer(cfg, data, pg_fn=pg.make_pg_fn(cfg))
+        state = tr.init_state(init_params_from_warmstart(
+            ws, device=dev, dtype=torch.float64))
+        if draws is None:
+            draws = [pg.pg_draws(cfg, state.params, g) for _ in range(4)]
+        on = [{k: v.to(dev) for k, v in d.items()} for d in draws]
+        pre = kernel_precal(cfg.kernel_type, state.params.kernel,
+                            state.params.z, cfg.jitter)
+        _, _, picks = pg.pg_ancestor_style(cfg, state.params, pre, data,
+                                           on[3])
+        t1 = time.time()
+        state, trace = tr.run(state, 3, draws=[{"pg": d} for d in on[:3]])
+        runs[dev] = (trace.cpu(), {k: v.detach().cpu() for k, v
+                                   in state.params.leaves().items()},
+                     {k: v.cpu() for k, v in picks.items()},
+                     time.time() - t1)
+    rel = float(((runs["cuda"][0] - runs["cpu"][0]).abs()
+                 / runs["cpu"][0].abs()).max())
+    leaf_ok = all(torch.allclose(runs["cuda"][1][k], v, rtol=1e-9,
+                                 atol=1e-12)
+                  for k, v in runs["cpu"][1].items())
+    same_idx = all(torch.equal(runs["cuda"][2][k], v)
+                   for k, v in runs["cpu"][2].items())
+    emit("fp64_pg", case="C6", iterations=3, max_rel_diff=rel,
+         leaves_within_rtol_1e_9=leaf_ok,
+         resampling_indices_identical=same_idx,
+         seconds_cuda=runs["cuda"][3], seconds_cpu=runs["cpu"][3],
+         seconds=time.time() - t0)
+    check(same_idx, "fp64 C6: resampling indices differ between cuda and CPU")
+    check(torch.allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-9, atol=0)
+          and leaf_ok, f"fp64 C6 cuda vs cpu differ: max rel {rel}")
+
+
 def phase_fp64_sampler(torch):
     """Phase 5b: ballbeam C5 in fp64, 5 outer iterations with the same
     injected sampler noise and window feeds on cuda and on the CPU; the nll
@@ -742,8 +982,11 @@ def main() -> int:
     timed("generator", phase_generator, torch, ro)
     launches = timed("main_path", phase_main_path, torch, ro, card)
     sampler = timed("sampler_paths", phase_sampler_paths, torch, ro, card)
+    pg_path = timed("pg_path", phase_pg_path, torch, ro, card)
+    timed("linear_path", phase_linear_path, torch, ro, card)
     timed("fp64_train", phase_fp64_train, torch)
     timed("fp64_sampler", phase_fp64_sampler, torch)
+    timed("fp64_pg", phase_fp64_pg, torch)
     timing = timed("timing", phase_timing, torch, ro)
     emit("phase_seconds", **seconds, total=time.time() - t0)
 
@@ -760,7 +1003,7 @@ def main() -> int:
         "launches_by_path": {
             "C4": launches,
             **{k: v["rollout_launches_fit"] + v["rollout_launches_evaluate"]
-               for k, v in sampler.items()}},
+               for k, v in {**sampler, "C6": pg_path}.items()}},
         "fp64": {"ms": f64["ms"], "plain_ms": f64["plain_ms"],
                  "bound_ms": f64["bound_ms"], "bound_by": f64["bound_by"],
                  "max_abs_err": worst["fp64"], "plan": f64["plan"]},

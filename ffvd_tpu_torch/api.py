@@ -19,6 +19,7 @@ from ffvd_tpu_torch.data import create_dataset, load_warmstart
 from ffvd_tpu_torch.eval.results import save_results_npz
 from ffvd_tpu_torch.eval.rollout import (collect_posterior, predict_summary,
                                          rmse_nll)
+from ffvd_tpu_torch.inference.particle_gibbs import make_pg_fn
 from ffvd_tpu_torch.inference.trainer import Trainer
 from ffvd_tpu_torch.model.likelihoods import emission_mean, use_full_r
 from ffvd_tpu_torch.model.params import (GPSSMParams, SSMData,
@@ -69,11 +70,12 @@ class FFVDModel:
                                          device=self.device)
         self.data = SSMData(y=as_t(self.dataset.y_train),
                             control=as_t(self.dataset.control))
-        self.trainer = Trainer(cfg, self.data)
+        pg_fn = make_pg_fn(cfg) if cfg.case_config.x_pg else None
+        self.trainer = Trainer(cfg, self.data, pg_fn=pg_fn)
         self.state = self.trainer.init_state(params)
         # Host generator: rollout noise seeds are drawn from it.  Training
-        # generator, on the device: SG-HMC noise, window feeds, thinning and
-        # the emission noise of sample().
+        # generator, on the device: SG-HMC noise, window feeds, the PG
+        # sweep's draws, thinning and the emission noise of sample().
         self.generator = torch.Generator().manual_seed(cfg.seed)
         self.train_generator = torch.Generator(
             device=self.device).manual_seed(cfg.seed)

@@ -11,11 +11,17 @@ semantics):
   - free-run from the last training state x_N (:237): per step
     x ← x + f_mu + N(0, f_var + Q) (:296-302), recording x and f_var + Q.
 
-Without SG-HMC leaves (C1, C4) the samples are iid and share one set of
-parameters: one ``ops.rollout.rollout`` call.  With them (C2, C3, C5, C7,
-hyperparameter sampling) each sample has its own hypers, Z, U or q(U), Q
-and x_N, and all S go to one ``ops.rollout.rollout_batched`` call.  On the
-card either is one launch of the CUDA kernel.
+Without SG-HMC leaves (C1, C4, C6) the samples are iid and share one set
+of parameters: one ``ops.rollout.rollout`` call.  With them (C2, C3, C5,
+C7, hyperparameter sampling) each sample has its own hypers, Z, U or q(U),
+Q and x_N, and all S go to one ``ops.rollout.rollout_batched`` call.  On
+the card either is one launch of the CUDA kernel.
+
+The kernel is SE-ARD only, as the JAX package's Pallas rollout is
+(pallas_rollout.py:148).  A LinearK config takes ``linear_rollout``, a
+torch recursion of ``gp_transition``: the port of the JAX package's
+production rollout, a ``lax.scan`` of the same step.  ``cfg.kernel_type``
+alone chooses the path.
 
 Metrics (base_model.py:340-349, :629):
   ŷ   = mean_samples(x C) + d,   v̂ = mean_samples(x_var C²) + R
@@ -33,7 +39,7 @@ import torch
 
 from ffvd_tpu_torch.inference.trainer import Trainer, TrainState
 from ffvd_tpu_torch.model.conditionals import (Precal, collapsed_u_posterior,
-                                               kernel_precal)
+                                               gp_transition, kernel_precal)
 from ffvd_tpu_torch.model.elbo import gp_inputs
 from ffvd_tpu_torch.model.likelihoods import emission_mean, use_full_r
 from ffvd_tpu_torch.model.params import GPSSMParams, SSMData
@@ -115,6 +121,27 @@ def rollout_controls(data: SSMData, test_len: int) -> torch.Tensor:
     return controls.contiguous()
 
 
+def linear_rollout(trainer: Trainer, params: GPSSMParams,
+                   controls: torch.Tensor, noise: torch.Tensor):
+    """Rollouts of one parameter set by the torch recursion of
+    ``gp_transition`` (the step of ``ffvd_tpu/eval/rollout.py::
+    _rollout_one``), S = noise.shape[0] rows from x_N sharing its Kmm
+    factor, U or q(U) and Q.  noise (S, T, D).  Returns (xs, var_tot),
+    each (S, T, D)."""
+    cfg = trainer.cfg
+    pre = kernel_precal(cfg.kernel_type, params.kernel, params.z, cfg.jitter)
+    u_val, q_sqrt = u_and_qsqrt(trainer, params, trainer.data, pre)
+    q = params.q
+    x = params.x[-1][None, :].expand(noise.shape[0], -1)
+    xs, vs = [], []
+    for t in range(controls.shape[0]):
+        x, v = gp_transition(cfg.kernel_type, params.kernel, pre, params.z,
+                             u_val, q, x, controls[t], noise[:, t], q_sqrt)
+        xs.append(x)
+        vs.append(v)
+    return torch.stack(xs, dim=1), torch.stack(vs, dim=1)
+
+
 @torch.no_grad()
 def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
                       num: Optional[int] = None,
@@ -128,25 +155,37 @@ def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
     ``rollout`` call.  With them the chain is thinned first
     (``thin_posterior``, normals from ``thin_generator`` or ``thin_noise``)
     and the S samples' own parameters go to one ``rollout_batched`` call.
-    ``generator`` draws the rollout's Philox seed; ``noise`` (num,
+    A LinearK config rolls out by ``linear_rollout`` instead: once for the
+    iid samples, once a sample for a thinned chain.  ``generator`` draws
+    the rollout's Philox seed (SE) or normals (LinearK); ``noise`` (num,
     test_len, D), when given, replaces that noise.  Returns (predict_x
     (S, T, D), predict_x_var (S, T, D), the state with the moved chain)."""
     cfg = trainer.cfg
     num = num or cfg.num_posterior_samples
-    if cfg.kernel_type != "SquaredExponential":
-        raise NotImplementedError(
-            "the rollout kernel is SE-ARD only; a LinearK rollout is not "
-            "ported yet (ROADMAP Queue 1, item 5)")
     controls = rollout_controls(trainer.data, test_len)
+    linear = cfg.kernel_type != "SquaredExponential"
+    if linear and noise is None:
+        x = state.params.x
+        noise = torch.randn(
+            (num, test_len, x.shape[1]), generator=generator, dtype=x.dtype,
+            device=generator.device if generator is not None else "cpu"
+        ).to(x.device)
     if trainer.has_sghmc:
         samples, state = thin_posterior(
             trainer, state, num, cfg.posterior_sample_spacing,
             thin_generator, thin_noise)
+        if linear:
+            rolls = [linear_rollout(trainer, p, controls, noise[i:i + 1])
+                     for i, p in enumerate(samples)]
+            return (torch.cat([r[0] for r in rolls]),
+                    torch.cat([r[1] for r in rolls]), state)
         inp = posterior_inputs(trainer, samples)
         xs, vs = rollout_ops.rollout_batched(
             controls=controls, noise=noise, generator=generator, **inp)
         return xs, vs, state
     params = state.params
+    if linear:
+        return (*linear_rollout(trainer, params, controls, noise), state)
     pre = kernel_precal(cfg.kernel_type, params.kernel, params.z, cfg.jitter)
     u_val, q_sqrt = u_and_qsqrt(trainer, params, trainer.data, pre)
     xs, vs = rollout_ops.rollout(

@@ -11,20 +11,22 @@ reference (models.py:142-197) runs:
   3. one Adam step on the nll, with the SG-HMC leaves fed from a random
      window slot (base_model.py:944-950).
 
-A case without SG-HMC leaves (C1, C4) skips 1-2 and draws no random numbers;
-a case without Adam leaves (C7) skips 3 and reports the nll after the
-sampler phase.  The random numbers come from the caller's
-``torch.Generator`` or are injected (``noise=``, ``feed=``), so the tests
-can feed both packages the same draws.  Particle Gibbs (C6), deep layers,
-minibatch windows and ds64 raise at construction until ROADMAP Queue 1
-items 7-9 port them.
+In C6 a particle-Gibbs sweep (``inference/particle_gibbs.py``) replaces
+the trajectory x between 2 and 3, as ``ffvd_tpu/inference/trainer.py:414``
+does; x is frozen to Adam there.  A case without SG-HMC leaves (C1, C4,
+C6) skips 1-2, and C1 and C4 draw no random numbers; a case without Adam
+leaves (C7) skips 3 and reports the nll after the sampler phase.  The
+random numbers come from the caller's ``torch.Generator`` or are injected
+(``noise=``, ``feed=``, ``pg=``), so the tests can feed both packages the
+same draws.  Deep layers, minibatch windows and ds64 raise at construction
+until ROADMAP Queue 1 items 8-9 port them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +51,14 @@ def label_tree(cfg: FFVDConfig) -> Dict[str, str]:
             "kernel.log_lengthscales": part.kernel,
             "log_q": part.log_q, "c": part.lik, "d": part.lik,
             "log_rchol": part.lik}
+
+
+def grads_of(nll: torch.Tensor, leaves) -> list:
+    """d nll / d leaf for each leaf, zeros for a leaf the objective does not
+    use (the LinearK lengthscales), as ``jax.grad`` returns them."""
+    grads = torch.autograd.grad(nll, leaves, allow_unused=True)
+    return [torch.zeros_like(v) if g is None else g
+            for v, g in zip(leaves, grads)]
 
 
 def sanitize_grads(grads, clip):
@@ -113,11 +123,10 @@ class TrainState:
 class Trainer:
     """Runs the FFVD training protocol for one config."""
 
-    def __init__(self, cfg: FFVDConfig, data: SSMData):
-        if cfg.case_config.x_pg:
-            raise NotImplementedError(
-                f"case {cfg.case_config.name} needs particle Gibbs, which is "
-                "not ported yet (ROADMAP Queue 1, item 7)")
+    def __init__(self, cfg: FFVDConfig, data: SSMData,
+                 pg_fn: Optional[Callable] = None):
+        """``pg_fn``: the particle-Gibbs sweep of case C6
+        (``particle_gibbs.make_pg_fn``), required there."""
         if cfg.n_layers > 1:
             raise NotImplementedError(
                 "deep transitions are not ported yet (ROADMAP Queue 1, "
@@ -131,8 +140,11 @@ class Trainer:
             raise NotImplementedError(
                 "collapse_precision='ds64'/'hybrid' is not ported yet "
                 "(ROADMAP Queue 1, item 9)")
+        if cfg.case_config.x_pg and pg_fn is None:
+            raise ValueError("case C6 requires a particle-Gibbs function")
         self.cfg = cfg
         self.data = data
+        self.pg_fn = pg_fn
         self.labels = label_tree(cfg)
         self.has_sghmc = SGHMC in self.labels.values()
         self.has_adam = ADAM in self.labels.values()
@@ -202,7 +214,7 @@ class Trainer:
         req = {k: v.detach().requires_grad_(True) for k, v in sub.items()}
         with torch.enable_grad():
             nll = self.nll_fn(GPSSMParams.from_leaves({**fixed, **req}), data)
-            grads = torch.autograd.grad(nll, list(req.values()))
+            grads = grads_of(nll, list(req.values()))
         return dict(zip(req, sanitize_grads(grads, self.cfg.sghmc_grad_clip)))
 
     def sghmc_move(self, sub: Leaves, sstate: SGHMCState, params: GPSSMParams,
@@ -252,12 +264,14 @@ class Trainer:
     def outer_step(self, state: TrainState,
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[Leaves] = None,
-                   feed: Optional[int] = None) -> torch.Tensor:
+                   feed: Optional[int] = None,
+                   pg: Optional[dict] = None) -> torch.Tensor:
         """One outer iteration, updating ``state`` in place.  Returns the
         nll, detached: at the window-fed point before the Adam update
         (trainer.py:430), or after the sampler phase when there is no Adam
-        leaf (C7, :434).  ``noise`` (path → (21, ...)) and ``feed`` replace
-        the draws from ``generator``."""
+        leaf (C7, :434).  ``noise`` (path → (21, ...)), ``feed`` and ``pg``
+        (one sweep's draws, ``particle_gibbs.pg_draws``) replace the draws
+        from ``generator``."""
         if self.has_sghmc:
             if noise is None:   # the 21 sub-steps' normals, drawn up front
                 noise = tree_normals(self.subset.split(state.params),
@@ -272,13 +286,16 @@ class Trainer:
                     w[slot] = sub[k]
             state.window_count = min(state.window_count + 1,
                                      self.cfg.window_size)
+        if self.pg_fn is not None and self.cfg.case_config.x_pg:
+            state.params = self.pg_fn(state.params, generator, self.data,
+                                      draws=pg)
         if self.has_adam:
             feed_params = (self._feed_params(state, generator, feed)
                            if self.has_sghmc else state.params)
             group = state.adam.param_groups[0]["params"]
             with torch.enable_grad():
                 nll = self.nll_fn(feed_params, self.data)
-                grads = torch.autograd.grad(nll, group)
+                grads = grads_of(nll, group)
             for p, g in zip(group, sanitize_grads(grads,
                                                   self.cfg.sghmc_grad_clip)):
                 p.grad = g
@@ -297,11 +314,11 @@ class Trainer:
         """Run ``num_iterations`` outer iterations (the reference runs
         2×cfg.iterations, models.py:142).  Returns (state, nll_trace).
 
-        ``generator`` draws the sampler noise and the window feed;
-        ``draws``, one dict of ``outer_step`` keywords (``noise``, ``feed``)
-        per iteration, replaces it.  ``nan_check``: per chunk of
-        ``chunk_size`` iterations, raise with the failing iteration index
-        and a finite-by-block diagnosis."""
+        ``generator`` draws the sampler noise, the window feed and the PG
+        sweep's numbers; ``draws``, one dict of ``outer_step`` keywords
+        (``noise``, ``feed``, ``pg``) per iteration, replaces it.
+        ``nan_check``: per chunk of ``chunk_size`` iterations, raise with
+        the failing iteration index and a finite-by-block diagnosis."""
         draws = iter(draws) if draws is not None else None
         traces = []
         done = 0

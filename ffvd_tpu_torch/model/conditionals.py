@@ -77,6 +77,38 @@ def whitened_conditional(
     return mean, var.T
 
 
+def gp_transition(
+    kernel_type: str,
+    kparams: KernelParams,
+    pre: Precal,
+    z: torch.Tensor,
+    u: torch.Tensor,
+    q: torch.Tensor,
+    x_t: torch.Tensor,
+    ctrl: torch.Tensor,
+    eps: torch.Tensor,
+    q_sqrt: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the shallow GP transition for a block of R rows: the
+    PG sweep's particles (``particle_gibbs.py:81-106``, ``_propagate``) or
+    the rollout's samples (``eval/rollout.py:65-80``).
+
+        x̃ = [x_t, ctrl],  (μ, v) = q(f | x̃),
+        var_tot = max(v + Q, 0),  x_next = (μ + x_t) + ε·√var_tot
+
+    x_t (R, D); ctrl (U,), shared by every row, U may be 0; eps (R, D);
+    q (D,); q_sqrt as in ``whitened_conditional``.  The clamp guards fp32
+    cancellation in Kdiag − ΣA².  Returns (x_next, var_tot), each (R, D)."""
+    if ctrl.shape[-1] > 0:
+        xc = torch.cat([x_t, ctrl[None, :].expand(x_t.shape[0], -1)], dim=1)
+    else:
+        xc = x_t
+    mu, var = whitened_conditional(kernel_type, kparams, pre, z, u, xc,
+                                   q_sqrt=q_sqrt)
+    var_tot = torch.clamp(var + q, min=0.0)
+    return (mu + x_t) + eps * torch.sqrt(var_tot), var_tot
+
+
 def _collapse_pieces(a: torch.Tensor, dx: torch.Tensor, q: torch.Tensor,
                      gram_scale: float = 1.0):
     """H_d = s·F̃ᵀF̃/Q_d + I and a_d = s·F̃ᵀ Δx_d / Q_d."""

@@ -12,7 +12,11 @@ default shapes, the cases cover each branch of ``rollout_plan``: a cluster
 of six CTAs (D=6), a CTA that owns two dims (D=9), resident factors at
 M=200 in fp32 and global ones at M=320 in fp64; and the per-sample mode
 (``rollout_batched``, a thinned SG-HMC posterior) on the resident and
-global paths.
+global paths.  The torch paths of case C6 and of the linear kernel: one
+fp64 particle-Gibbs sweep on the card equals the CPU's with the same
+injected draws (identical resampling indices, x within rtol 1e-9), its
+recursion and backtrack under ``set_sync_debug_mode("error")``; and the
+LinearK rollout on the card equals the CPU's (rtol 1e-9) with no launch.
 """
 
 import pytest
@@ -236,3 +240,85 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda):
     noise = torch.zeros(2, 50, 3, device=cuda)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         ro.rollout(*args, 2, noise=noise)
+
+
+def _pg_model(device, n=30, d=2, m=6, u_dim=1, seed=0):
+    """A small C6 model on ``device`` (fp64), from a seed."""
+    from ffvd_tpu_torch.model.params import SSMData, params_from_numpy
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, dtype=torch.float64)
+    din = d + u_dim
+    leaves = {"x": 0.5 * rnd(n + 1, d), "u": rnd(m, d), "z": rnd(m, din),
+              "kernel.log_variance": torch.log(0.2 + rnd(d).abs()),
+              "kernel.log_lengthscales": torch.log(0.5 + rnd(d, din).abs()),
+              "log_q": torch.log(0.05 + 0.2 * rnd(d).abs()),
+              "c": rnd(d, 1), "d": rnd(1), "log_rchol": torch.tensor(
+                  [[-1.2]], dtype=torch.float64)}
+    data = SSMData(y=rnd(n, 1).to(device), control=rnd(2 * n, u_dim)
+                   .to(device))
+    return params_from_numpy({k: v.numpy() for k, v in leaves.items()},
+                             device=device), data
+
+
+@pytest.mark.parametrize("ancestor", [True, False])
+def test_pg_sweep_on_cuda_equals_cpu(cuda, ancestor):
+    """One fp64 sweep with the same injected draws: identical resampling
+    indices, x within rtol 1e-9; and the recursion syncs nothing."""
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.inference import particle_gibbs as pg
+    cfg = FFVDConfig(case=6, num_inducing=6, x_dim=2, pg_particles=16,
+                     pg_ancestor_trace=ancestor)
+    style = pg.pg_ancestor_style if ancestor else pg.pg_reference_style
+    runs, draws = [], None
+    for dev in ("cpu", cuda):
+        params, data = _pg_model(dev)
+        if draws is None:
+            draws = pg.pg_draws(cfg, params, torch.Generator().manual_seed(5))
+        dr = {k: v.to(dev) for k, v in draws.items()}
+        pre = kernel_precal(cfg.kernel_type, params.kernel, params.z,
+                            cfg.jitter)
+        if dev == cuda:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            runs.append(style(cfg, params, pre, data, dr))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    (xc, sc, pc), (xg, sg, pgk) = runs
+    for k, v in pc.items():
+        assert torch.equal(pgk[k].cpu(), v), k
+    torch.testing.assert_close(xg.cpu(), xc, rtol=1e-9, atol=1e-12)
+    for k, v in sc.items():
+        torch.testing.assert_close(sg[k].cpu(), v, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("case", [4, 5])
+def test_linear_rollout_on_cuda(cuda, case):
+    """The LinearK recursion on the card equals the CPU's (fp64, rtol
+    1e-9) and launches no kernel."""
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.eval.rollout import collect_posterior
+    from ffvd_tpu_torch.inference.trainer import Trainer
+    cfg = FFVDConfig(case=case, kernel_type="LinearK", num_inducing=6,
+                     x_dim=2, jitter=1e-3, posterior_sample_spacing=2)
+    noise = torch.randn(3, 15, 2, dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(1))
+    thin, runs = None, []
+    for dev in ("cpu", cuda):
+        params, data = _pg_model(dev, n=20)
+        tr = Trainer(cfg, data)
+        state = tr.init_state(params)
+        if case == 5 and thin is None:
+            g = torch.Generator().manual_seed(2)
+            thin = {k: torch.randn((3, 2) + tuple(v.shape), generator=g,
+                                   dtype=torch.float64)
+                    for k, v in tr.subset.split(params).items()}
+        before = ro.rollout.launches
+        xs, vs, _ = collect_posterior(
+            tr, state, 15, num=3, noise=noise.to(dev),
+            thin_noise=None if thin is None else
+            {k: v.to(dev) for k, v in thin.items()})
+        assert ro.rollout.launches == before
+        runs.append((xs.cpu(), vs.cpu()))
+    for got, want in zip(runs[1], runs[0]):
+        torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-12)

@@ -89,7 +89,7 @@ def test_label_tree_matches_jax(case):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"case": 6}, "item 7"),
+    ({"case": 6, "n_layers": 2}, "item 8"),
     ({"case": 4, "n_layers": 2}, "item 8"),
     ({"case": 4, "minibatch_size": 64}, "item 8"),
     ({"case": 5, "n_layers": 2}, "item 8"),
