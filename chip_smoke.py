@@ -29,10 +29,20 @@ that each print one JSON line:
    ``torch.cuda.set_sync_debug_mode("error")``;
 4d. the LinearK path in fp32: ballbeam C4 with ``kernel_type="LinearK"``
    for 20 iterations and ``evaluate()`` (the torch recursion, no kernel);
+4e. the deep path in fp32: flutter C4 with ``n_layers=2`` (one hidden
+   layer of the head's shapes) for 500 iterations and ``evaluate()`` (the
+   deep torch recursion, no kernel);
+4f. the window path in fp32: the kink benchmark at N=5000 from a cold
+   start, C4 with ``minibatch_size=256`` for 200 iterations, the full
+   objective before and after, 20 full-batch iterations for comparison,
+   ``evaluate()`` (the kernel at T=5000 without controls, one launch), and
+   the kernel against its plain version at those shapes;
 5. 200 fp64 training iterations on cuda against the same on the CPU;
 5b. 5 fp64 C5 iterations with injected sampler draws, cuda against CPU;
 5c. 3 fp64 C6 iterations with injected sweep draws, cuda against CPU, and
    one sweep's resampling indices on both;
+5d. 3 fp64 deep C4 iterations with injected inter-layer normals, and the
+   deep rollout with injected noise, cuda against CPU;
 6. kernel timing with CUDA events at S=10 and S=64, shared and per-sample
    inputs, with the launch plan, and one ``{"kernels": [...]}`` line.
 
@@ -696,6 +706,230 @@ def phase_linear_path(torch, ro, card):
     return out
 
 
+def phase_deep_path(torch, ro, card):
+    """Phase 4e: flutter C4 with a deep transition (``n_layers=2``) in fp32
+    at full width (D=4, M=100, N=512, Din=5, one hidden layer of the same
+    shapes): ``fit(500)`` (the protocol runs 4000) and ``evaluate()``, with
+    the launch count set to 0 just before and read just after.  The deep
+    rollout is the torch recursion, so no kernel launches.  The training
+    nll is doubly stochastic, so its fall is read on the means of the
+    first and last 50 iterations."""
+    from ffvd_tpu_torch.api import FFVDModel
+    from ffvd_tpu_torch.config import FFVDConfig
+    cfg = FFVDConfig(dataset="flutter", case=4, n_layers=2)
+    iterations = 500
+    ro.rollout.launches = 0          # this path starts here
+    model = FFVDModel(cfg, device="cuda")
+    check(model.dtype == torch.float32, f"deep dtype {model.dtype}")
+    check(len(model.params.hidden) == 1, "deep: no hidden layer grafted")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    model.fit(iterations)
+    nll = model.nll_trace.cpu()
+    train_s = time.time() - t0
+    launches_fit = ro.rollout.launches
+    t1 = time.time()
+    res = model.evaluate()
+    torch.cuda.synchronize()
+    eval_ms = (time.time() - t1) * 1e3
+    launches_eval = ro.rollout.launches - launches_fit
+    hidden_u = float(model.params.hidden[0].u.detach().norm())
+    first, last = float(nll[:50].mean()), float(nll[-50:].mean())
+    out = {"card": card, "dataset": "flutter", "case": "C4", "n_layers": 2,
+           "precision": "fp32", "iterations": int(nll.numel()),
+           "protocol_iterations": cfg.total_iterations,
+           "train_seconds": train_s, "train_it_per_s": nll.numel() / train_s,
+           "eval_ms": eval_ms, "T": model.dataset.n_test, "S": S,
+           "rmse": res["rmse"], "nll": res["nll"],
+           "nll_first": float(nll[0]), "nll_last": float(nll[-1]),
+           "nll_mean_first_50": first, "nll_mean_last_50": last,
+           "hidden_u_norm": hidden_u,
+           "rollout_launches_fit": launches_fit,
+           "rollout_launches_evaluate": launches_eval}
+    emit("deep_path", **out)
+    check(bool(torch.isfinite(nll).all()), "deep: non-finite nll")
+    check(last < first, f"deep: nll did not fall: {first} -> {last}")
+    check(hidden_u > 0, "deep: the hidden layer's u did not move")
+    check(math.isfinite(res["rmse"]) and math.isfinite(res["nll"]),
+          f"deep: non-finite RMSE/NLL {res['rmse']}/{res['nll']}")
+    check(launches_fit == 0 and launches_eval == 0,
+          f"deep: rollout launches {launches_fit} in fit, {launches_eval} "
+          "in evaluate")
+    return out
+
+
+def phase_window_path(torch, ro, card):
+    """Phase 4f: random-window minibatch training on a long sequence, fp32:
+    ``generate_kink(n=5000)`` (N=5000 training transitions, no control)
+    from the cold start ``init_params_random(x_dim=4, M=100)``, C4 with
+    ``minibatch_size=256``: ``fit(200)`` with the full objective before and
+    after, then ``evaluate()`` (full batch; the kernel at T=5000, U=0), the
+    launch count set to 0 just before and read just after.  Then, outside
+    the count: 20 full-batch iterations of the same start for comparison,
+    and the kernel against its plain version on the evaluated model's
+    inputs in fp64 over all 5000 steps."""
+    from ffvd_tpu_torch.api import FFVDModel
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.data import generate_kink
+    from ffvd_tpu_torch.eval.rollout import rollout_controls, u_and_qsqrt
+    from ffvd_tpu_torch.model.conditionals import kernel_precal
+    from ffvd_tpu_torch.model.elbo import negative_elbo
+    from ffvd_tpu_torch.model.params import (GPSSMParams, SSMData,
+                                             init_params_random)
+    n, w, iterations = 5000, 256, 200
+    ds = generate_kink(n=n, seed=0)
+    start = lambda: init_params_random(
+        n, 4, 100, 0, generator=torch.Generator().manual_seed(0),
+        device="cuda", dtype=torch.float32)
+    cfg = FFVDConfig(dataset="kink", case=4, minibatch_size=w)
+
+    def full_objective(m):
+        with torch.no_grad():
+            return float(negative_elbo(m.params, m.data))
+
+    ro.rollout.launches = 0          # this path starts here
+    model = FFVDModel(cfg, device="cuda", dataset=ds, params=start())
+    check(model.trainer.window_n == w, "window: not windowed")
+    before = full_objective(model)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    model.fit(iterations)
+    nll = model.nll_trace.cpu()
+    train_s = time.time() - t0
+    after = full_objective(model)
+    launches_fit = ro.rollout.launches
+    t1 = time.time()
+    res = model.evaluate()
+    torch.cuda.synchronize()
+    eval_ms = (time.time() - t1) * 1e3
+    launches_eval = ro.rollout.launches - launches_fit
+
+    full = FFVDModel(FFVDConfig(dataset="kink", case=4), device="cuda",
+                     dataset=ds, params=start())
+    check(full.trainer.window_n is None, "window: comparison is windowed")
+    torch.cuda.synchronize()
+    t2 = time.time()
+    full.fit(20)
+    full_trace = full.nll_trace.cpu()
+    full_s = time.time() - t2
+
+    # The kernel at this path's shapes (S=10, T=5000, D=4, M=100, U=0)
+    # against its plain version, fp64, on the trained model's inputs.
+    tr = model.trainer
+    p64 = GPSSMParams.from_leaves({k: v.detach().double()
+                                   for k, v in model.params.leaves().items()})
+    data64 = SSMData(y=tr.data.y.double(), control=tr.data.control.double())
+    with torch.no_grad():
+        pre = kernel_precal(cfg.kernel_type, p64.kernel, p64.z, cfg.jitter)
+        u_val, q_sqrt = u_and_qsqrt(tr, p64, data64, pre)
+    controls = rollout_controls(data64, ds.n_test)
+    noise = torch.randn((S, ds.n_test, 4), dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(5)).cuda()
+    args = (p64.kernel, p64.z, pre.lm_inv, u_val, q_sqrt, p64.q, p64.x[-1],
+            controls, S)
+    xk, vk = ro.rollout(*args, noise=noise)
+    plan = ro.rollout.last_plan
+    xr, vr = ro.rollout_reference(*args, noise=noise)
+    torch.cuda.synchronize()
+    err = max(float((xk - xr).abs().max()), float((vk - vr).abs().max()))
+    kernel_ok = (torch.allclose(xk, xr, rtol=1e-9, atol=1e-12)
+                 and torch.allclose(vk, vr, rtol=1e-9, atol=1e-12))
+
+    out = {"card": card, "dataset": "kink", "N": n, "window": w,
+           "case": "C4", "precision": "fp32", "iterations": int(nll.numel()),
+           "train_seconds": train_s, "train_it_per_s": nll.numel() / train_s,
+           "full_objective_before": before, "full_objective_after": after,
+           "full_batch_iterations": int(full_trace.numel()),
+           "full_batch_seconds": full_s,
+           "full_batch_it_per_s": full_trace.numel() / full_s,
+           "eval_ms": eval_ms, "T": ds.n_test, "S": S,
+           "rmse": res["rmse"], "nll": res["nll"],
+           "nll_first": float(nll[0]), "nll_last": float(nll[-1]),
+           "rollout_launches_fit": launches_fit,
+           "rollout_launches_evaluate": launches_eval,
+           "kernel_vs_plain": {"dtype": "fp64", "max_abs_err": err,
+                               "tolerance": "rtol 1e-9, atol 1e-12, all T",
+                               "ok": kernel_ok, "plan": plan._asdict()}}
+    emit("window_path", **out)
+    check(bool(torch.isfinite(nll).all()), "window: non-finite nll")
+    check(after < before,
+          f"window: the full objective did not fall: {before} -> {after}")
+    check(bool(torch.isfinite(full_trace).all()),
+          "window: non-finite full-batch nll")
+    check(math.isfinite(res["rmse"]) and math.isfinite(res["nll"]),
+          f"window: non-finite RMSE/NLL {res['rmse']}/{res['nll']}")
+    check(launches_fit == 0 and launches_eval == 1,
+          f"window: rollout launches {launches_fit} in fit, {launches_eval} "
+          "in evaluate")
+    check(kernel_ok and bool(torch.isfinite(xk).all()),
+          f"window: kernel vs plain at T={ds.n_test}: {err}")
+    return out
+
+
+def phase_fp64_deep(torch):
+    """Phase 5d: flutter C4 with ``n_layers=2`` in fp64, 3 outer
+    iterations with the same injected inter-layer normals on cuda and on
+    the CPU, the nll traces and every leaf within rtol 1e-9; then the deep
+    rollout (S=10 over the test half) with the same injected head and
+    hidden-layer noise on both, within rtol 1e-9."""
+    import dataclasses
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.data import create_dataset, load_warmstart
+    from ffvd_tpu_torch.eval.rollout import collect_posterior
+    from ffvd_tpu_torch.inference.trainer import Trainer
+    from ffvd_tpu_torch.model.params import (SSMData, init_hidden_layers,
+                                             init_params_from_warmstart,
+                                             params_from_numpy,
+                                             params_to_numpy)
+    t0 = time.time()
+    cfg = FFVDConfig(dataset="flutter", case=4, n_layers=2)
+    ds = create_dataset("flutter")
+    head = init_params_from_warmstart(load_warmstart("flutter"))
+    leaves = params_to_numpy(dataclasses.replace(head, hidden=init_hidden_layers(
+        1, head, generator=torch.Generator().manual_seed(0))))
+    g = torch.Generator().manual_seed(88)
+    t_len = ds.n_test
+    noise = torch.randn((S, t_len, 4), generator=g, dtype=torch.float64)
+    hidden_noise = [torch.randn((S, t_len, 4), generator=g,
+                                dtype=torch.float64)]
+    draws, runs = None, {}
+    for dev in ("cpu", "cuda"):
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+        tr = Trainer(cfg, SSMData(y=as_t(ds.y_train), control=as_t(ds.control)))
+        state = tr.init_state(params_from_numpy(leaves, device=dev))
+        if draws is None:
+            draws = [tr.grad_draws(1, g, state.params.x) for _ in range(3)]
+        t1 = time.time()
+        state, trace = tr.run(state, 3, draws=[
+            {"prop": [p.to(dev) for p in d["prop"]]} for d in draws])
+        train_s = time.time() - t1
+        t2 = time.time()
+        xs, vs, _ = collect_posterior(tr, state, t_len, num=S,
+                                      noise=noise.to(dev),
+                                      hidden_noise=[h.to(dev)
+                                                    for h in hidden_noise])
+        runs[dev] = (trace.cpu(), {k: v.detach().cpu() for k, v
+                                   in state.params.leaves().items()},
+                     xs.cpu(), vs.cpu(), train_s, time.time() - t2)
+    (tc, lc, xc, vc, *sc), (tg, lg, xg, vg, *sg) = runs["cpu"], runs["cuda"]
+    rel = float(((tg - tc).abs() / tc.abs()).max())
+    leaf_ok = all(torch.allclose(lg[k], v, rtol=1e-9, atol=1e-12)
+                  for k, v in lc.items())
+    roll_err = max(float((xg - xc).abs().max()), float((vg - vc).abs().max()))
+    roll_ok = (torch.allclose(xg, xc, rtol=1e-9, atol=1e-12)
+               and torch.allclose(vg, vc, rtol=1e-9, atol=1e-12))
+    emit("fp64_deep", case="C4", n_layers=2, iterations=3, max_rel_diff=rel,
+         leaves_within_rtol_1e_9=leaf_ok, rollout_T=t_len,
+         rollout_max_abs_diff=roll_err, rollout_within_rtol_1e_9=roll_ok,
+         seconds_train_cuda=sg[0], seconds_train_cpu=sc[0],
+         seconds_rollout_cuda=sg[1], seconds_rollout_cpu=sc[1],
+         seconds=time.time() - t0)
+    check(torch.allclose(tg, tc, rtol=1e-9, atol=0) and leaf_ok,
+          f"fp64 deep C4 cuda vs cpu differ: max rel {rel}")
+    check(roll_ok and bool(torch.isfinite(xg).all()),
+          f"fp64 deep rollout cuda vs cpu differ: {roll_err}")
+
+
 def phase_fp64_pg(torch):
     """Phase 5c: ballbeam C6 in fp64, 3 outer iterations with the same
     injected sweep draws on cuda and on the CPU: the nll traces and every
@@ -984,9 +1218,12 @@ def main() -> int:
     sampler = timed("sampler_paths", phase_sampler_paths, torch, ro, card)
     pg_path = timed("pg_path", phase_pg_path, torch, ro, card)
     timed("linear_path", phase_linear_path, torch, ro, card)
+    deep = timed("deep_path", phase_deep_path, torch, ro, card)
+    window = timed("window_path", phase_window_path, torch, ro, card)
     timed("fp64_train", phase_fp64_train, torch)
     timed("fp64_sampler", phase_fp64_sampler, torch)
     timed("fp64_pg", phase_fp64_pg, torch)
+    timed("fp64_deep", phase_fp64_deep, torch)
     timing = timed("timing", phase_timing, torch, ro)
     emit("phase_seconds", **seconds, total=time.time() - t0)
 
@@ -1003,7 +1240,8 @@ def main() -> int:
         "launches_by_path": {
             "C4": launches,
             **{k: v["rollout_launches_fit"] + v["rollout_launches_evaluate"]
-               for k, v in {**sampler, "C6": pg_path}.items()}},
+               for k, v in {**sampler, "C6": pg_path, "deep_C4": deep,
+                            "window_C4": window}.items()}},
         "fp64": {"ms": f64["ms"], "plain_ms": f64["plain_ms"],
                  "bound_ms": f64["bound_ms"], "bound_by": f64["bound_by"],
                  "max_abs_err": worst["fp64"], "plan": f64["plan"]},

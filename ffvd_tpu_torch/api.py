@@ -8,13 +8,15 @@ the card and fp64 on the CPU unless ``dtype`` says otherwise.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ffvd_tpu_torch.config import FFVDConfig
+from ffvd_tpu_torch.config import DATASETS, DEEP_UNDERFIT_DATASETS, FFVDConfig
 from ffvd_tpu_torch.data import create_dataset, load_warmstart
 from ffvd_tpu_torch.eval.results import save_results_npz
 from ffvd_tpu_torch.eval.rollout import (collect_posterior, predict_summary,
@@ -23,8 +25,33 @@ from ffvd_tpu_torch.inference.particle_gibbs import make_pg_fn
 from ffvd_tpu_torch.inference.trainer import Trainer
 from ffvd_tpu_torch.model.likelihoods import emission_mean, use_full_r
 from ffvd_tpu_torch.model.params import (GPSSMParams, SSMData,
+                                         adapt_warmstart_xdim,
+                                         init_hidden_layers,
                                          init_params_from_warmstart)
 from ffvd_tpu_torch.utils.device import default_dtype, resolve_device
+
+
+def _warn_deep_usage(cfg: FFVDConfig) -> None:
+    """Warn when ``n_layers > 1`` is asked for on a stock dataset where the
+    JAX package's seeded study measured no win for deep transitions
+    (PARITY §2b-deep: flutter and drive gain; actuator degrades 2-5x).  The
+    same message as ``ffvd_tpu/api.py::_warn_deep_usage``."""
+    if cfg.n_layers <= 1 or cfg.dataset not in DATASETS:
+        return
+    if cfg.dataset in DEEP_UNDERFIT_DATASETS:
+        return
+    detail = (
+        "the measured regression is 2-5x (deep-2 RMSE 0.50-0.66 vs shallow "
+        "0.13-0.27 over 3 seeds); a smaller deep_hidden_init_scale "
+        "(e.g. 0.0625) recovers about half of it, but shallow remains best"
+        if cfg.dataset == "actuator" else
+        "deep-2 measured parity-to-slightly-worse within seed spread there")
+    warnings.warn(
+        f"n_layers={cfg.n_layers} on '{cfg.dataset}': the shallow model "
+        f"already fits this dataset well and {detail}.  Deep transitions "
+        "pay only where shallow underfits (measured: flutter, drive) — "
+        "see PARITY.md §2b-deep / tests/golden/deep_study.json.",
+        UserWarning, stacklevel=3)
 
 
 class FFVDModel:
@@ -32,15 +59,16 @@ class FFVDModel:
 
     def __init__(self, cfg: FFVDConfig, device=None, dtype=None, dataset=None,
                  params: Optional[GPSSMParams] = None):
-        """``dataset``/``params`` may be injected; by default the named
-        dataset and its Factnonlin warm start load."""
+        """``dataset``/``params`` may be injected (e.g. synthetic data from
+        ``data.synthetic`` and a cold start from ``init_params_random``); by
+        default the named dataset and its Factnonlin warm start load.  A
+        shallow start is adapted to ``cfg.x_dim``, then, for
+        ``cfg.n_layers > 1``, given near-identity hidden layers drawn from
+        the host generator."""
         self.cfg = cfg
+        _warn_deep_usage(cfg)
         self.device = resolve_device(device)
         self.dtype = dtype or default_dtype(self.device)
-        if cfg.n_layers > 1:
-            raise NotImplementedError(
-                "deep transitions are not ported yet (ROADMAP Queue 1, "
-                "item 8: model/deep.py)")
         if cfg.collapse_precision != "native":
             raise NotImplementedError(
                 "collapse_precision='ds64'/'hybrid' is not ported yet "
@@ -56,16 +84,26 @@ class FFVDModel:
                 k: v.detach().to(self.device, self.dtype)
                 for k, v in params.leaves().items()})
         if cfg.x_dim != params.x_dim:
-            raise NotImplementedError(
-                f"x_dim={cfg.x_dim} differs from the warm start's "
-                f"{params.x_dim}; adapt_warmstart_xdim is not ported yet "
-                "(ROADMAP Queue 1, item 8)")
+            params = adapt_warmstart_xdim(
+                params, cfg.x_dim,
+                control_dim=self.dataset.control.shape[1], seed=cfg.seed)
         if cfg.num_inducing != params.z.shape[0]:
             raise NotImplementedError(
                 f"num_inducing={cfg.num_inducing} differs from the warm "
                 f"start's {params.z.shape[0]}; resizing the inducing set is "
                 "not ported yet (ROADMAP Queue 1, item 11: "
                 "parallel/multidataset.py::_resize_inducing)")
+        # Host generator: rollout noise seeds (and the hidden layers' start)
+        # are drawn from it.  Training generator, on the device: SG-HMC
+        # noise, window feeds and starts, inter-layer normals, the PG
+        # sweep's draws, thinning and the emission noise of sample().
+        self.generator = torch.Generator().manual_seed(cfg.seed)
+        self.train_generator = torch.Generator(
+            device=self.device).manual_seed(cfg.seed)
+        if cfg.n_layers > 1 and not params.hidden:
+            params = dataclasses.replace(params, hidden=init_hidden_layers(
+                cfg.n_layers - 1, params, cfg.deep_hidden_init_scale,
+                self.generator))
         as_t = lambda a: torch.as_tensor(a, dtype=self.dtype,
                                          device=self.device)
         self.data = SSMData(y=as_t(self.dataset.y_train),
@@ -73,12 +111,6 @@ class FFVDModel:
         pg_fn = make_pg_fn(cfg) if cfg.case_config.x_pg else None
         self.trainer = Trainer(cfg, self.data, pg_fn=pg_fn)
         self.state = self.trainer.init_state(params)
-        # Host generator: rollout noise seeds are drawn from it.  Training
-        # generator, on the device: SG-HMC noise, window feeds, the PG
-        # sweep's draws, thinning and the emission noise of sample().
-        self.generator = torch.Generator().manual_seed(cfg.seed)
-        self.train_generator = torch.Generator(
-            device=self.device).manual_seed(cfg.seed)
         self.nll_trace = torch.zeros((0,), dtype=self.dtype,
                                      device=self.device)
         self.rmse_seq = []

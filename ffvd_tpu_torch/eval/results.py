@@ -24,8 +24,19 @@ def save_results_npz(path, *, params: GPSSMParams, fit_y, predict_y,
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     p = params
+    # Deep transitions (model/deep.py): the hidden layers have no reference
+    # key, so they go under the JAX package's own prefix.
+    hidden_kw = {}
+    for i, layer in enumerate(p.hidden):
+        hidden_kw[f"hidden{i}_U_val"] = _np(layer.u)
+        hidden_kw[f"hidden{i}_Z_val"] = _np(layer.z)
+        hidden_kw[f"hidden{i}_k_lengthscales"] = _np(
+            layer.kernel.log_lengthscales)
+        hidden_kw[f"hidden{i}_k_log_variances"] = _np(
+            layer.kernel.log_variance)
     np.savez_compressed(
         path,
+        **hidden_kw,
         y_train_vfe=_np(fit_y).reshape(-1),
         y_test_vfe=_np(predict_y).reshape(-1),
         v_test_vfe_var=_np(predict_y_var).reshape(-1),

@@ -17,11 +17,13 @@ C7, hyperparameter sampling) each sample has its own hypers, Z, U or q(U),
 Q and x_N, and all S go to one ``ops.rollout.rollout_batched`` call.  On
 the card either is one launch of the CUDA kernel.
 
-The kernel is SE-ARD only, as the JAX package's Pallas rollout is
-(pallas_rollout.py:148).  A LinearK config takes ``linear_rollout``, a
-torch recursion of ``gp_transition``: the port of the JAX package's
-production rollout, a ``lax.scan`` of the same step.  ``cfg.kernel_type``
-alone chooses the path.
+The kernel is SE-ARD and shallow only, as the JAX package's Pallas rollout
+is (pallas_rollout.py:148).  A LinearK config and a deep one
+(``cfg.n_layers > 1``) take ``recursion_rollout``, a torch recursion of
+``gp_transition`` (after ``model.deep.propagate_step`` through the hidden
+layers, for a deep model): the port of the JAX package's production
+rollout, a ``lax.scan`` of the same step.  ``cfg.kernel_type`` and
+``cfg.n_layers`` alone choose the path.
 
 Metrics (base_model.py:340-349, :629):
   ŷ   = mean_samples(x C) + d,   v̂ = mean_samples(x_var C²) + R
@@ -40,6 +42,8 @@ import torch
 from ffvd_tpu_torch.inference.trainer import Trainer, TrainState
 from ffvd_tpu_torch.model.conditionals import (Precal, collapsed_u_posterior,
                                                gp_transition, kernel_precal)
+from ffvd_tpu_torch.model.deep import (hidden_normals, hidden_precals,
+                                       propagate_step)
 from ffvd_tpu_torch.model.elbo import gp_inputs
 from ffvd_tpu_torch.model.likelihoods import emission_mean, use_full_r
 from ffvd_tpu_torch.model.params import GPSSMParams, SSMData
@@ -50,13 +54,16 @@ from ffvd_tpu_torch.ops.kernels import KernelParams
 def u_and_qsqrt(trainer: Trainer, params: GPSSMParams, data: SSMData,
                 pre: Precal):
     """(U, q_sqrt) for the rollout: the collapsed q(U) mean and its upper
-    factor chol(H)⁻ᵀ, or the trained U and None when U is not collapsed."""
+    factor chol(H)⁻ᵀ, or the trained U and None when U is not collapsed.
+    A deep model's training inputs are mean-propagated through its hidden
+    layers: the collapse is a point summary (rollout.py:131-161)."""
     cfg = trainer.cfg
     if not cfg.case_config.u_collapse:
         return params.u, None
     u_val, q_sqrt = collapsed_u_posterior(
         cfg.kernel_type, params.kernel, pre, params.z, params.x,
-        gp_inputs(params, data), params.q)
+        gp_inputs(params, data, kernel_type=cfg.kernel_type,
+                  jitter=cfg.jitter), params.q)
     if cfg.rollout_qsqrt_dim0:
         # reference slip compat (conditionals_multi_output.py:322): dim 0's
         # q(U) factor applied to every dim's variance
@@ -66,23 +73,34 @@ def u_and_qsqrt(trainer: Trainer, params: GPSSMParams, data: SSMData,
 
 def thin_posterior(trainer: Trainer, state: TrainState, num: int,
                    spacing: int, generator: Optional[torch.Generator] = None,
-                   thin_noise: Optional[Dict[str, torch.Tensor]] = None):
+                   thin_noise: Optional[Dict[str, torch.Tensor]] = None,
+                   thin_prop: Optional[List[torch.Tensor]] = None):
     """Continue the SG-HMC chain: per sample, ``spacing`` sample-only
-    sub-steps of the SG-HMC leaves (base_model.py:227-231).  ``thin_noise``
-    (path → (num, spacing, ...)) replaces the normals drawn from
-    ``generator``.  Returns (the ``num`` thinned params, the state with the
-    moved chain)."""
+    sub-steps of the SG-HMC leaves (base_model.py:227-231), full batch.  A
+    deep (stochastic) trainer draws fresh inter-layer normals for every
+    sub-step's gradient, as training does (rollout.py:176-209).
+    ``thin_noise`` (path → (num, spacing, ...)) and ``thin_prop`` (one
+    (num, spacing, N, D) tensor per hidden layer) replace the normals drawn
+    from ``generator``.  Returns (the ``num`` thinned params, the state
+    with the moved chain)."""
     subset = trainer.subset
     params = state.params
     sub = {k: v.detach() for k, v in subset.split(params).items()}
     sstate = state.sghmc
+    n_hidden = len(params.hidden)
     samples = []
     for i in range(num):
         for j in range(spacing):
             nz = (None if thin_noise is None
                   else {k: v[i, j] for k, v in thin_noise.items()})
+            eps = None
+            if trainer.stochastic:
+                eps = ([p[i, j] for p in thin_prop] if thin_prop is not None
+                       else hidden_normals(
+                           n_hidden, (params.n_transitions,), params.x_dim,
+                           generator, params.x.dtype, params.x.device))
             sub, sstate = trainer.sghmc_move(sub, sstate, params, False, nz,
-                                             generator)
+                                             generator, eps=eps)
         samples.append(subset.merge(sub, params))
     return samples, dataclasses.replace(
         state, params=subset.merge(sub, params), sghmc=sstate)
@@ -121,22 +139,33 @@ def rollout_controls(data: SSMData, test_len: int) -> torch.Tensor:
     return controls.contiguous()
 
 
-def linear_rollout(trainer: Trainer, params: GPSSMParams,
-                   controls: torch.Tensor, noise: torch.Tensor):
+def recursion_rollout(trainer: Trainer, params: GPSSMParams,
+                      controls: torch.Tensor, noise: torch.Tensor,
+                      hidden_noise: Optional[List[torch.Tensor]] = None):
     """Rollouts of one parameter set by the torch recursion of
     ``gp_transition`` (the step of ``ffvd_tpu/eval/rollout.py::
     _rollout_one``), S = noise.shape[0] rows from x_N sharing its Kmm
-    factor, U or q(U) and Q.  noise (S, T, D).  Returns (xs, var_tot),
-    each (S, T, D)."""
+    factor, U or q(U) and Q.  noise (S, T, D), the head's normals.  A deep
+    model first propagates each step's state through its hidden layers
+    (``propagate_step``, the layers' Kmm factorised once), with
+    ``hidden_noise``, one (S, T, D) tensor per hidden layer; the identity
+    skip stays on x_t.  Returns (xs, var_tot), each (S, T, D)."""
     cfg = trainer.cfg
     pre = kernel_precal(cfg.kernel_type, params.kernel, params.z, cfg.jitter)
     u_val, q_sqrt = u_and_qsqrt(trainer, params, trainer.data, pre)
+    hpre = hidden_precals(cfg.kernel_type, cfg.jitter, params.hidden)
     q = params.q
     x = params.x[-1][None, :].expand(noise.shape[0], -1)
     xs, vs = [], []
     for t in range(controls.shape[0]):
+        h = None
+        if params.hidden:
+            h = propagate_step(cfg.kernel_type, cfg.jitter, params.hidden,
+                               hpre, x, controls[t],
+                               [e[:, t] for e in hidden_noise])
         x, v = gp_transition(cfg.kernel_type, params.kernel, pre, params.z,
-                             u_val, q, x, controls[t], noise[:, t], q_sqrt)
+                             u_val, q, x, controls[t], noise[:, t], q_sqrt,
+                             h_t=h)
         xs.append(x)
         vs.append(v)
     return torch.stack(xs, dim=1), torch.stack(vs, dim=1)
@@ -148,35 +177,45 @@ def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
                       generator: Optional[torch.Generator] = None,
                       noise: Optional[torch.Tensor] = None,
                       thin_noise: Optional[Dict[str, torch.Tensor]] = None,
-                      thin_generator: Optional[torch.Generator] = None):
+                      thin_generator: Optional[torch.Generator] = None,
+                      hidden_noise: Optional[List[torch.Tensor]] = None,
+                      thin_prop: Optional[List[torch.Tensor]] = None):
     """Draw ``num`` posterior predictive trajectories of ``test_len`` steps.
 
     Without SG-HMC leaves the samples are iid: one q(U) summary, one
     ``rollout`` call.  With them the chain is thinned first
-    (``thin_posterior``, normals from ``thin_generator`` or ``thin_noise``)
-    and the S samples' own parameters go to one ``rollout_batched`` call.
-    A LinearK config rolls out by ``linear_rollout`` instead: once for the
-    iid samples, once a sample for a thinned chain.  ``generator`` draws
-    the rollout's Philox seed (SE) or normals (LinearK); ``noise`` (num,
-    test_len, D), when given, replaces that noise.  Returns (predict_x
+    (``thin_posterior``, normals from ``thin_generator`` or ``thin_noise``
+    and ``thin_prop``) and the S samples' own parameters go to one
+    ``rollout_batched`` call.  A LinearK or deep config rolls out by
+    ``recursion_rollout`` instead: once for the iid samples, once a sample
+    for a thinned chain.  ``generator`` draws the rollout's Philox seed
+    (kernel) or normals (recursion); ``noise`` (num, test_len, D) and, for
+    a deep model, ``hidden_noise`` (one (num, test_len, D) tensor per
+    hidden layer), when given, replace that noise.  Returns (predict_x
     (S, T, D), predict_x_var (S, T, D), the state with the moved chain)."""
     cfg = trainer.cfg
     num = num or cfg.num_posterior_samples
     controls = rollout_controls(trainer.data, test_len)
-    linear = cfg.kernel_type != "SquaredExponential"
-    if linear and noise is None:
-        x = state.params.x
-        noise = torch.randn(
-            (num, test_len, x.shape[1]), generator=generator, dtype=x.dtype,
-            device=generator.device if generator is not None else "cpu"
-        ).to(x.device)
+    x = state.params.x
+    recursion = (cfg.kernel_type != "SquaredExponential"
+                 or cfg.n_layers > 1)
+    if recursion and noise is None:
+        noise = hidden_normals(1, (num, test_len), x.shape[1], generator,
+                               x.dtype, x.device)[0]
+    if recursion and hidden_noise is None and state.params.hidden:
+        hidden_noise = hidden_normals(len(state.params.hidden),
+                                      (num, test_len), x.shape[1],
+                                      generator, x.dtype, x.device)
     if trainer.has_sghmc:
         samples, state = thin_posterior(
             trainer, state, num, cfg.posterior_sample_spacing,
-            thin_generator, thin_noise)
-        if linear:
-            rolls = [linear_rollout(trainer, p, controls, noise[i:i + 1])
-                     for i, p in enumerate(samples)]
+            thin_generator, thin_noise, thin_prop)
+        if recursion:
+            rolls = [recursion_rollout(
+                trainer, p, controls, noise[i:i + 1],
+                None if hidden_noise is None
+                else [e[i:i + 1] for e in hidden_noise])
+                for i, p in enumerate(samples)]
             return (torch.cat([r[0] for r in rolls]),
                     torch.cat([r[1] for r in rolls]), state)
         inp = posterior_inputs(trainer, samples)
@@ -184,8 +223,9 @@ def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
             controls=controls, noise=noise, generator=generator, **inp)
         return xs, vs, state
     params = state.params
-    if linear:
-        return (*linear_rollout(trainer, params, controls, noise), state)
+    if recursion:
+        return (*recursion_rollout(trainer, params, controls, noise,
+                                   hidden_noise), state)
     pre = kernel_precal(cfg.kernel_type, params.kernel, params.z, cfg.jitter)
     u_val, q_sqrt = u_and_qsqrt(trainer, params, trainer.data, pre)
     xs, vs = rollout_ops.rollout(

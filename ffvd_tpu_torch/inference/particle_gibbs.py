@@ -2,10 +2,13 @@
 
 Counterpart of ``ffvd_tpu/inference/particle_gibbs.py`` (the rebuild of the
 reference's ``PG_for_X_speedup``, base_model.py:78-141), with the same
-names.  P−1 free particles go through the shallow GP transition
+names.  P−1 free particles go through the GP transition
 (``model.conditionals.gp_transition``) with one Kmm factorisation a sweep,
 are weighted by the emission likelihood of y_t and resampled, with the
-current trajectory kept as the reference particle.
+current trajectory kept as the reference particle.  A deep model first
+sends the particle block through its hidden layers
+(``model.deep.propagate_step``) with fresh per-particle normals, the hidden
+layers' Kmm factorised once a sweep too (particle_gibbs.py:81-112).
 
 Two styles, as in the JAX package (``cfg.pg_ancestor_trace``):
 
@@ -35,6 +38,7 @@ import torch
 from ffvd_tpu_torch.config import FFVDConfig
 from ffvd_tpu_torch.model.conditionals import (Precal, gp_transition,
                                                kernel_precal)
+from ffvd_tpu_torch.model.deep import hidden_precals, propagate_step
 from ffvd_tpu_torch.model.likelihoods import (emission_log_lik_rows,
                                               emission_mean)
 from ffvd_tpu_torch.model.params import GPSSMParams, SSMData
@@ -94,7 +98,8 @@ def pg_draws(cfg: FFVDConfig, params: GPSSMParams,
       normals     (n, P−1, D)  propagation noise
       gumbels     (n, P−1, P)  resampling Gumbels
       final       (P,) Gumbels (ancestor style) or (1,) int64 in [0, P)
-                  (reference style): the final choice."""
+                  (reference style): the final choice
+      hidden      (n, L−1, P−1, D) inter-layer normals, deep models only."""
     if generator is None:
         raise ValueError("the particle-Gibbs sweep needs a torch.Generator "
                          "or injected draws (pg=)")
@@ -109,16 +114,26 @@ def pg_draws(cfg: FFVDConfig, params: GPSSMParams,
     else:
         out["final"] = torch.randint(0, pp, (1,), generator=generator,
                                      device=generator.device)
+    if params.hidden:
+        out["hidden"] = normal(n, len(params.hidden), pp - 1, d)
     return {k: v.to(dev) for k, v in out.items()}
 
 
-def _step_fn(cfg: FFVDConfig, params: GPSSMParams, pre: Precal):
-    """x_t (R, D), ctrl, eps → x_{t+1} (R, D) for this sweep's params."""
+def _step_fn(cfg: FFVDConfig, params: GPSSMParams, pre: Precal,
+             draws: Draws):
+    """x_t (R, D), ctrl, eps, t → x_{t+1} (R, D) for this sweep's params;
+    a deep model's particles first pass the hidden layers with the step's
+    normals ``draws["hidden"][t]``."""
     q = params.q
+    hpre = hidden_precals(cfg.kernel_type, cfg.jitter, params.hidden)
 
-    def step(x_t, ctrl, eps):
+    def step(x_t, ctrl, eps, t):
+        h = None
+        if params.hidden:
+            h = propagate_step(cfg.kernel_type, cfg.jitter, params.hidden,
+                               hpre, x_t, ctrl, draws["hidden"][t])
         return gp_transition(cfg.kernel_type, params.kernel, pre, params.z,
-                             params.u, q, x_t, ctrl, eps)[0]
+                             params.u, q, x_t, ctrl, eps, h_t=h)[0]
     return step
 
 
@@ -131,12 +146,12 @@ def pg_reference_style(cfg: FFVDConfig, params: GPSSMParams, pre: Precal,
     stats, picks), picks = {"resampled": (n, P−1) indices into the pool,
     "final": the column draw}."""
     pp, n = cfg.pg_particles, params.n_transitions
-    step = _step_fn(cfg, params, pre)
+    step = _step_fn(cfg, params, pre, draws)
     controls, x_ref = data.control[:n], params.x[1:]
     x_t = draws["particles0"]
     seq, idxs = [x_t], []
     for t in range(n):
-        x_next = step(x_t, controls[t], draws["normals"][t])
+        x_next = step(x_t, controls[t], draws["normals"][t], t)
         pool = torch.cat([x_next, x_ref[t:t + 1]], dim=0)      # (P, D)
         logits = _weights(params, pool, data.y[t], cfg.emission_noise)
         idx = torch.argmax(draws["gumbels"][t] + logits, dim=-1)
@@ -165,7 +180,7 @@ def pg_ancestor_style(cfg: FFVDConfig, params: GPSSMParams, pre: Precal,
     stats, picks), picks = {"ancestors": (n, P) parent of each particle,
     "final": the lane the backtrack starts from}."""
     pp, n = cfg.pg_particles, params.n_transitions
-    step = _step_fn(cfg, params, pre)
+    step = _step_fn(cfg, params, pre, draws)
     controls, x_ref = data.control[:n], params.x[1:]
     x_t = torch.cat([draws["particles0"], params.x[:1]], dim=0)  # (P, D)
     logits = torch.zeros(pp, dtype=x_t.dtype, device=x_t.device)
@@ -173,7 +188,7 @@ def pg_ancestor_style(cfg: FFVDConfig, params: GPSSMParams, pre: Precal,
     for t in range(n):
         par = torch.argmax(draws["gumbels"][t] + logits, dim=-1)
         x_free = step(x_t.index_select(0, par), controls[t],
-                      draws["normals"][t])
+                      draws["normals"][t], t)
         x_t = torch.cat([x_free, x_ref[t:t + 1]], dim=0)       # (P, D)
         logits = _weights(params, x_t, data.y[t], cfg.emission_noise)
         states.append(x_t)
@@ -216,10 +231,6 @@ def make_pg_fn(cfg: FFVDConfig, data: Optional[SSMData] = None,
                      trajectory,
       dx_mean_abs    mean |new_x − old_x|,
       dx_frac_moved  fraction of trajectory rows that changed."""
-    if cfg.n_layers > 1:
-        raise NotImplementedError(
-            "deep transitions are not ported yet (ROADMAP Queue 1, item 8: "
-            "model/deep.py)")
     bound_data = data
 
     if cfg.pg_compat_noop:

@@ -14,19 +14,27 @@ reference (models.py:142-197) runs:
 In C6 a particle-Gibbs sweep (``inference/particle_gibbs.py``) replaces
 the trajectory x between 2 and 3, as ``ffvd_tpu/inference/trainer.py:414``
 does; x is frozen to Adam there.  A case without SG-HMC leaves (C1, C4,
-C6) skips 1-2, and C1 and C4 draw no random numbers; a case without Adam
-leaves (C7) skips 3 and reports the nll after the sampler phase.  The
-random numbers come from the caller's ``torch.Generator`` or are injected
-(``noise=``, ``feed=``, ``pg=``), so the tests can feed both packages the
-same draws.  Deep layers, minibatch windows and ds64 raise at construction
-until ROADMAP Queue 1 items 8-9 port them.
+C6) skips 1-2; a case without Adam leaves (C7) skips 3 and reports the nll
+after the sampler phase.
+
+Two options make every training gradient evaluation random, as in JAX:
+``cfg.minibatch_size < N`` evaluates it on a random time window
+(``model/elbo.py::windowed_elbo_terms``, a uniform start per evaluation),
+and a deep model (``cfg.n_layers > 1``) samples its inter-layer noise per
+evaluation (``model/deep.py``).  Reported nlls of an Adam-free step and the
+evaluation stay full batch and mean-propagated.
+
+The random numbers come from the caller's ``torch.Generator`` or are
+injected (``noise=``, ``feed=``, ``pg=``, ``starts=``, ``prop=``), so the
+tests can feed both packages the same draws.  ds64 raises at construction
+until ROADMAP Queue 1 item 9 ports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,8 +42,10 @@ import torch
 from ffvd_tpu_torch.config import ADAM, SGHMC, FFVDConfig, partition_for
 from ffvd_tpu_torch.inference.sghmc import (SGHMCState, sghmc_init,
                                             sghmc_step, tree_normals)
-from ffvd_tpu_torch.model.elbo import negative_elbo
-from ffvd_tpu_torch.model.params import LEAF_PATHS, GPSSMParams, SSMData
+from ffvd_tpu_torch.model.deep import hidden_normals
+from ffvd_tpu_torch.model.elbo import negative_elbo, windowed_negative_elbo
+from ffvd_tpu_torch.model.params import (HIDDEN_FIELDS, GPSSMParams, SSMData,
+                                         hidden_paths)
 
 Leaves = Dict[str, torch.Tensor]
 
@@ -44,13 +54,27 @@ SUBSTEP_FLAGS = (True,) + (True, False) * 10
 
 
 def label_tree(cfg: FFVDConfig) -> Dict[str, str]:
-    """'adam'/'sghmc'/'frozen' label per leaf path of a shallow model."""
+    """'adam'/'sghmc'/'frozen' label per leaf path, hidden layers included.
+
+    Hidden layers are Adam-trained point estimates by default; with
+    ``deep_sample_hidden`` they follow the case's u/z/kernel partition like
+    the head, except that a collapsed head (C4/C5) leaves hidden U to Adam:
+    only the head's U has an analytic collapse
+    (``ffvd_tpu/inference/trainer.py:45-74``)."""
     part = partition_for(cfg)
-    return {"x": part.x, "u": part.u, "z": part.z,
-            "kernel.log_variance": part.kernel,
-            "kernel.log_lengthscales": part.kernel,
-            "log_q": part.log_q, "c": part.lik, "d": part.lik,
-            "log_rchol": part.lik}
+    labels = {"x": part.x, "u": part.u, "z": part.z,
+              "kernel.log_variance": part.kernel,
+              "kernel.log_lengthscales": part.kernel,
+              "log_q": part.log_q, "c": part.lik, "d": part.lik,
+              "log_rchol": part.lik}
+    if cfg.deep_sample_hidden:
+        hidden_u = ADAM if cfg.case_config.u_collapse else part.u
+        layer = (hidden_u, part.z, part.kernel, part.kernel)
+    else:
+        layer = (ADAM,) * len(HIDDEN_FIELDS)
+    paths = hidden_paths(cfg.n_layers - 1)
+    labels.update(zip(paths, layer * (cfg.n_layers - 1)))
+    return labels
 
 
 def grads_of(nll: torch.Tensor, leaves) -> list:
@@ -96,10 +120,10 @@ def clip_log_leaves(tree: Leaves, clip) -> Leaves:
 
 class SubsetOps:
     """Split/merge the leaves with one label (the SG-HMC leaves by default),
-    in ``LEAF_PATHS`` order, which is the JAX package's pytree order."""
+    in ``label_tree``'s order, which is the JAX package's pytree order."""
 
     def __init__(self, labels: Dict[str, str], target: str = SGHMC):
-        self.paths = tuple(k for k in LEAF_PATHS if labels[k] == target)
+        self.paths = tuple(k for k, v in labels.items() if v == target)
 
     def split(self, params: GPSSMParams) -> Leaves:
         leaves = params.leaves()
@@ -127,15 +151,6 @@ class Trainer:
                  pg_fn: Optional[Callable] = None):
         """``pg_fn``: the particle-Gibbs sweep of case C6
         (``particle_gibbs.make_pg_fn``), required there."""
-        if cfg.n_layers > 1:
-            raise NotImplementedError(
-                "deep transitions are not ported yet (ROADMAP Queue 1, "
-                "item 8: model/deep.py)")
-        if cfg.minibatch_size is not None and \
-                cfg.minibatch_size < data.y.shape[0]:
-            raise NotImplementedError(
-                "minibatch windows are not ported yet (ROADMAP Queue 1, "
-                "item 8: windowed_elbo_terms)")
         if cfg.collapse_precision != "native":
             raise NotImplementedError(
                 "collapse_precision='ds64'/'hybrid' is not ported yet "
@@ -149,11 +164,25 @@ class Trainer:
         self.has_sghmc = SGHMC in self.labels.values()
         self.has_adam = ADAM in self.labels.values()
         self.subset = SubsetOps(self.labels)
-        self.nll_fn = functools.partial(
-            negative_elbo,
-            kernel_type=cfg.kernel_type, prior_type=cfg.prior_type,
-            u_collapse=cfg.case_config.u_collapse, jitter=cfg.jitter,
-            emission_noise=cfg.emission_noise)
+        kw = dict(kernel_type=cfg.kernel_type, prior_type=cfg.prior_type,
+                  u_collapse=cfg.case_config.u_collapse, jitter=cfg.jitter,
+                  emission_noise=cfg.emission_noise)
+        self.nll_fn = functools.partial(negative_elbo, **kw)
+        # A deep model samples its inter-layer noise per training gradient.
+        self.stochastic = cfg.n_layers > 1
+        # A window covering the whole sequence is full batch, also the
+        # reference's effective default (its --minibatch_size 1000 exceeds
+        # every stock dataset).
+        n = data.y.shape[0]
+        self.window_n = (cfg.minibatch_size if cfg.minibatch_size is not None
+                         and cfg.minibatch_size < n else None)
+        if self.window_n is not None:
+            self.win_nll_fn = functools.partial(
+                windowed_negative_elbo, window_n=self.window_n, **kw)
+            # Starts are uniform on [0, hi): with a padding mask (a suffix)
+            # inside the real prefix, read once here, not per draw.
+            real_n = n if data.mask is None else int(torch.sum(data.mask))
+            self.start_hi = max(real_n - self.window_n + 1, 1)
         # Effective Adam lr: 0.003·0.95^(global_step/1000) evaluated at the
         # constant global_step=1 the reference always passes
         # (base_model.py:188-194).
@@ -165,6 +194,12 @@ class Trainer:
         """Copy ``params`` into fresh leaves; Adam covers the 'adam' leaves
         only, so frozen leaves get no update and SG-HMC leaves move only by
         the sampler."""
+        if len(params.hidden) != self.cfg.n_layers - 1:
+            raise ValueError(
+                f"params has {len(params.hidden)} hidden layers but "
+                f"cfg.n_layers={self.cfg.n_layers} expects "
+                f"{self.cfg.n_layers - 1} (model/deep.py; "
+                "init_hidden_layers grafts them onto a shallow start)")
         leaves = {k: v.detach().clone().requires_grad_(self.labels[k] == ADAM)
                   for k, v in params.leaves().items()}
         # torch.optim.Adam is optax.adam's formula: b1=0.9, b2=0.999,
@@ -202,30 +237,83 @@ class Trainer:
             window={k: as_t(window[k]) for k in paths},
             window_count=int(window_count))
 
+    # -- one gradient evaluation's objective and random inputs --------------
+
+    def train_nll(self, params: GPSSMParams, data: Optional[SSMData] = None,
+                  start: Optional[torch.Tensor] = None,
+                  eps: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """The objective of one gradient evaluation: on the window at
+        ``start`` (training with ``window_n``), or full batch when
+        ``start`` is None (no window, or eval thinning, rollout.py:181-200);
+        a deep model's inter-layer normals ``eps`` (None: layer means)."""
+        data = self.data if data is None else data
+        if start is None:
+            return self.nll_fn(params, data, eps=eps)
+        return self.win_nll_fn(params, data, start, eps=eps)
+
+    def grad_draws(self, n_evals: int, generator: Optional[torch.Generator],
+                   x: torch.Tensor) -> Dict[str, object]:
+        """The random inputs of ``n_evals`` training gradient evaluations,
+        as ``outer_step`` takes them: ``starts`` (n_evals,) window starts,
+        uniform on [0, N − W] (on the real prefix of masked data), and
+        ``prop``, one (n_evals, rows, D) normal tensor per hidden layer, rows
+        = W or N, in the dtype and on the device of the trajectory ``x``.
+        Empty for a full-batch shallow trainer.  The starts stay on the
+        device: the window is gathered, never read back."""
+        out: Dict[str, object] = {}
+        if self.window_n is None and not self.stochastic:
+            return out
+        if generator is None:
+            raise ValueError("window starts and inter-layer noise need a "
+                             "torch.Generator or injected draws (starts=, "
+                             "prop=)")
+        dev = x.device
+        if self.window_n is not None:
+            out["starts"] = torch.randint(
+                0, self.start_hi, (n_evals,), generator=generator,
+                device=generator.device).to(dev)
+        if self.stochastic:
+            rows = self.window_n or self.data.y.shape[0]
+            out["prop"] = hidden_normals(
+                self.cfg.n_layers - 1, (n_evals, rows), x.shape[1],
+                generator, x.dtype, dev)
+        return out
+
+    @staticmethod
+    def _eval_draws(starts, prop, e: int):
+        """(start, eps) of gradient evaluation ``e`` of an iteration."""
+        return (None if starts is None else starts[e:e + 1],
+                None if prop is None else [p[e] for p in prop])
+
     # -- the SG-HMC leaves' gradient and chain ------------------------------
 
     def subset_grads(self, sub: Leaves, params: GPSSMParams,
-                     data: Optional[SSMData] = None) -> Leaves:
+                     data: Optional[SSMData] = None,
+                     start: Optional[torch.Tensor] = None,
+                     eps: Optional[List[torch.Tensor]] = None) -> Leaves:
         """Sanitised nll gradient with respect to the SG-HMC leaves only;
         the other leaves enter as constants, so autograd builds no backward
-        chain for them."""
-        data = self.data if data is None else data
+        chain for them.  ``start``/``eps``: see ``train_nll``."""
         fixed = {k: v.detach() for k, v in params.leaves().items()}
         req = {k: v.detach().requires_grad_(True) for k, v in sub.items()}
         with torch.enable_grad():
-            nll = self.nll_fn(GPSSMParams.from_leaves({**fixed, **req}), data)
+            nll = self.train_nll(GPSSMParams.from_leaves({**fixed, **req}),
+                                 data, start, eps)
             grads = grads_of(nll, list(req.values()))
         return dict(zip(req, sanitize_grads(grads, self.cfg.sghmc_grad_clip)))
 
     def sghmc_move(self, sub: Leaves, sstate: SGHMCState, params: GPSSMParams,
                    burn_in: bool, noise: Optional[Leaves] = None,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   start: Optional[torch.Tensor] = None,
+                   eps: Optional[List[torch.Tensor]] = None
                    ) -> Tuple[Leaves, SGHMCState]:
         """One sampler sub-step of the SG-HMC leaves ``sub`` (the rest of
         ``params`` held fixed), then the log clip.  ``noise`` replaces the
-        normals drawn from ``generator``."""
+        normals drawn from ``generator``; ``start``/``eps`` are the
+        gradient's window start and inter-layer normals."""
         cfg = self.cfg
-        grads = self.subset_grads(sub, params)
+        grads = self.subset_grads(sub, params, start=start, eps=eps)
         sub, sstate = sghmc_step(
             sub, grads, sstate, epsilon=cfg.epsilon, mdecay=cfg.mdecay,
             x_n=params.x.shape[0], burn_in=burn_in, p_clip=cfg.sghmc_p_clip,
@@ -233,13 +321,17 @@ class Trainer:
         return clip_log_leaves(sub, cfg.log_clip_bounds), sstate
 
     def _sghmc_phase(self, params: GPSSMParams, sstate: SGHMCState,
-                     noise: Leaves) -> Tuple[GPSSMParams, SGHMCState]:
-        """The 21 sub-steps B, (B, S)×10, full batch, gradients with respect
-        to the SG-HMC leaves only (trainer.py:329-393, shallow branch)."""
+                     noise: Leaves, starts=None, prop=None
+                     ) -> Tuple[GPSSMParams, SGHMCState]:
+        """The 21 sub-steps B, (B, S)×10, gradients with respect to the
+        SG-HMC leaves only, sub-step i on window ``starts[i]`` with
+        inter-layer normals ``prop[·][i]`` (trainer.py:329-393)."""
         sub = {k: v.detach() for k, v in self.subset.split(params).items()}
         for i, flag in enumerate(SUBSTEP_FLAGS):
+            start, eps = self._eval_draws(starts, prop, i)
             sub, sstate = self.sghmc_move(sub, sstate, params, flag,
-                                          {k: v[i] for k, v in noise.items()})
+                                          {k: v[i] for k, v in noise.items()},
+                                          start=start, eps=eps)
         return self.subset.merge(sub, params), sstate
 
     # -- one outer iteration ----------------------------------------------
@@ -265,19 +357,31 @@ class Trainer:
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[Leaves] = None,
                    feed: Optional[int] = None,
-                   pg: Optional[dict] = None) -> torch.Tensor:
+                   pg: Optional[dict] = None,
+                   starts: Optional[torch.Tensor] = None,
+                   prop: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         """One outer iteration, updating ``state`` in place.  Returns the
-        nll, detached: at the window-fed point before the Adam update
-        (trainer.py:430), or after the sampler phase when there is no Adam
-        leaf (C7, :434).  ``noise`` (path → (21, ...)), ``feed`` and ``pg``
-        (one sweep's draws, ``particle_gibbs.pg_draws``) replace the draws
-        from ``generator``."""
+        nll, detached: at the window-fed point before the Adam update, on
+        that gradient's window and inter-layer draw (trainer.py:430), or
+        full batch and mean-propagated after the sampler phase when there
+        is no Adam leaf (C7, :434).  ``noise`` (path → (21, ...)), ``feed``,
+        ``pg`` (one sweep's draws, ``particle_gibbs.pg_draws``), ``starts``
+        and ``prop`` (``grad_draws``: one entry per gradient evaluation, the
+        21 sub-steps' first, then Adam's) replace the draws from
+        ``generator``."""
+        n_evals = (len(SUBSTEP_FLAGS) if self.has_sghmc else 0) \
+            + int(self.has_adam)
+        drawn = self.grad_draws(n_evals, generator, state.params.x) if (
+            (self.window_n is not None and starts is None)
+            or (self.stochastic and prop is None)) else {}
+        starts = drawn.get("starts") if starts is None else starts
+        prop = drawn.get("prop") if prop is None else prop
         if self.has_sghmc:
             if noise is None:   # the 21 sub-steps' normals, drawn up front
                 noise = tree_normals(self.subset.split(state.params),
                                      generator, (len(SUBSTEP_FLAGS),))
             state.params, state.sghmc = self._sghmc_phase(
-                state.params, state.sghmc, noise)
+                state.params, state.sghmc, noise, starts, prop)
             # Window snapshot as a ring buffer (base_model.py:927-933).
             slot = state.step % self.cfg.window_size
             sub = self.subset.split(state.params)
@@ -292,9 +396,10 @@ class Trainer:
         if self.has_adam:
             feed_params = (self._feed_params(state, generator, feed)
                            if self.has_sghmc else state.params)
+            start, eps = self._eval_draws(starts, prop, n_evals - 1)
             group = state.adam.param_groups[0]["params"]
             with torch.enable_grad():
-                nll = self.nll_fn(feed_params, self.data)
+                nll = self.train_nll(feed_params, None, start, eps)
                 grads = grads_of(nll, group)
             for p, g in zip(group, sanitize_grads(grads,
                                                   self.cfg.sghmc_grad_clip)):
@@ -314,9 +419,10 @@ class Trainer:
         """Run ``num_iterations`` outer iterations (the reference runs
         2×cfg.iterations, models.py:142).  Returns (state, nll_trace).
 
-        ``generator`` draws the sampler noise, the window feed and the PG
-        sweep's numbers; ``draws``, one dict of ``outer_step`` keywords
-        (``noise``, ``feed``, ``pg``) per iteration, replaces it.
+        ``generator`` draws the sampler noise, the window feed, the PG
+        sweep's numbers, the window starts and the inter-layer normals;
+        ``draws``, one dict of ``outer_step`` keywords (``noise``, ``feed``,
+        ``pg``, ``starts``, ``prop``) per iteration, replaces it.
         ``nan_check``: per chunk of ``chunk_size`` iterations, raise with
         the failing iteration index and a finite-by-block diagnosis."""
         draws = iter(draws) if draws is not None else None

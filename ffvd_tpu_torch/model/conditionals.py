@@ -88,21 +88,26 @@ def gp_transition(
     ctrl: torch.Tensor,
     eps: torch.Tensor,
     q_sqrt: Optional[torch.Tensor] = None,
+    h_t: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One step of the shallow GP transition for a block of R rows: the
-    PG sweep's particles (``particle_gibbs.py:81-106``, ``_propagate``) or
-    the rollout's samples (``eval/rollout.py:65-80``).
+    """One step of the GP transition for a block of R rows: the PG sweep's
+    particles (``particle_gibbs.py:81-106``, ``_propagate``) or the
+    rollout's samples (``eval/rollout.py:65-80``).
 
-        x̃ = [x_t, ctrl],  (μ, v) = q(f | x̃),
+        x̃ = [h_t, ctrl],  (μ, v) = q(f | x̃),
         var_tot = max(v + Q, 0),  x_next = (μ + x_t) + ε·√var_tot
 
-    x_t (R, D); ctrl (U,), shared by every row, U may be 0; eps (R, D);
-    q (D,); q_sqrt as in ``whitened_conditional``.  The clamp guards fp32
+    x_t (R, D); h_t (R, D), the head's state input, is x_t for the shallow
+    model and the hidden layers' output for a deep one (the head-skip
+    design, ``ffvd_tpu/model/deep.py:14-24``): the identity skip stays on
+    x_t.  ctrl (U,), shared by every row, U may be 0; eps (R, D); q (D,);
+    q_sqrt as in ``whitened_conditional``.  The clamp guards fp32
     cancellation in Kdiag − ΣA².  Returns (x_next, var_tot), each (R, D)."""
+    h = x_t if h_t is None else h_t
     if ctrl.shape[-1] > 0:
-        xc = torch.cat([x_t, ctrl[None, :].expand(x_t.shape[0], -1)], dim=1)
+        xc = torch.cat([h, ctrl[None, :].expand(h.shape[0], -1)], dim=1)
     else:
-        xc = x_t
+        xc = h
     mu, var = whitened_conditional(kernel_type, kparams, pre, z, u, xc,
                                    q_sqrt=q_sqrt)
     var_tot = torch.clamp(var + q, min=0.0)

@@ -1,22 +1,30 @@
-"""The negative free-form ELBO, collapsed and uncollapsed.
+"""The negative free-form ELBO, collapsed and uncollapsed, full batch and
+on a random time window.
 
-Counterpart of ``ffvd_tpu/model/elbo.py::elbo_terms`` (objective assembly of
+Counterpart of ``ffvd_tpu/model/elbo.py`` (objective assembly of
 ``DGPSSM.__init__``, dgp_model.py:248-297, and ``regularizer``,
 dgp_model.py:337-359).  Term names match the reference's tensors so per-term
-golden values line up.  The reference always runs full batch, so the
-collapsed H-scaling /(batch·Q)·Y_N reduces to /Q; with ``data.mask`` every
-per-timestep sum is masked and normalised by the number of real
-transitions.
+golden values line up.  Full batch, the collapsed H-scaling /(batch·Q)·Y_N
+reduces to /Q; with ``data.mask`` every per-timestep sum is masked and
+normalised by the number of real transitions.  ``windowed_elbo_terms`` is
+the minibatch objective: the same terms over x[start : start+W+1] and
+y/control[start : start+W), with the reference's batch scaling.
+
+A deep model (``params.hidden``, ``model/deep.py``) propagates the GP
+inputs through its hidden layers, adds their priors, and takes ``eps``, the
+per-layer inter-layer normals of one gradient evaluation (None: layer
+means).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
 from ffvd_tpu_torch.model import conditionals as cond
 from ffvd_tpu_torch.model import priors
+from ffvd_tpu_torch.model.deep import hidden_priors, propagate_hidden
 from ffvd_tpu_torch.model.likelihoods import (emission_log_lik_rows,
                                               emission_mean)
 from ffvd_tpu_torch.model.params import GPSSMParams, SSMData
@@ -24,14 +32,30 @@ from ffvd_tpu_torch.ops.densities import (logdensity_norm_diag,
                                           logdensity_norm_diag_nonvec)
 
 
-def gp_inputs(params: GPSSMParams, data: SSMData) -> torch.Tensor:
-    """x̃_t = concat(x_t, u_t) over the N training transitions
-    (dgp_model.py:267-271 / :339-342)."""
+def gp_inputs(params: GPSSMParams, data: SSMData, *,
+              kernel_type: str = "SquaredExponential", jitter: float = 1e-5,
+              eps: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """x̃_t = concat(h_t, u_t) over the N training transitions
+    (dgp_model.py:267-271 / :339-342): h_t = x_t for the single-layer model,
+    the hidden layers' propagation of x_t for a deep one."""
     n = params.n_transitions
-    x_prev = params.x[:n]
-    if data.control.shape[1] > 0:
-        return torch.cat([x_prev, data.control[:n]], dim=1)
-    return x_prev
+    return _gp_inputs(params, params.x[:n], data.control[:n], kernel_type,
+                      jitter, eps)
+
+
+def _gp_inputs(params, x_prev, ctrl, kernel_type, jitter, eps):
+    h = x_prev
+    if params.hidden:
+        h = propagate_hidden(kernel_type, jitter, params.hidden, x_prev,
+                             ctrl, eps)
+    return torch.cat([h, ctrl], dim=1) if ctrl.shape[1] > 0 else h
+
+
+def _check_precision(collapse_precision):
+    if collapse_precision != "native":
+        raise NotImplementedError(
+            "collapse_precision='ds64'/'hybrid' is not ported yet "
+            "(ROADMAP Queue 1, item 9: precision modes)")
 
 
 def elbo_terms(params: GPSSMParams, data: SSMData, *,
@@ -42,40 +66,112 @@ def elbo_terms(params: GPSSMParams, data: SSMData, *,
                emission_noise: str = "auto",
                collapse_precision: str = "native",
                ds64_refine: Optional[int] = None,
-               key=None) -> Dict[str, torch.Tensor]:
+               eps: Optional[Sequence[torch.Tensor]] = None
+               ) -> Dict[str, torch.Tensor]:
     """All nll terms.  Returns a dict whose 'nll' entry is the objective.
 
-    ``collapse_precision`` other than "native" and ``key`` (the deep
-    transition's sampling key) belong to paths not ported yet."""
-    if collapse_precision != "native":
-        raise NotImplementedError(
-            "collapse_precision='ds64'/'hybrid' is not ported yet "
-            "(ROADMAP Queue 1, item 9: precision modes)")
-    if key is not None:
-        raise NotImplementedError(
-            "deep transitions are not ported yet (ROADMAP Queue 1, item 8: "
-            "model/deep.py)")
+    ``eps``: a deep model's inter-layer normals, one (N, D) tensor per
+    hidden layer (JAX draws them as ``normal(fold_in(key, i), (N, D))``);
+    None propagates the layer means.  ``collapse_precision`` other than
+    "native" belongs to a path not ported yet."""
+    _check_precision(collapse_precision)
     n = params.n_transitions
     mask = data.mask
-    dt, dev = params.x.dtype, params.x.device
     if mask is None:
-        y_n = torch.tensor(float(n), dtype=dt, device=dev)
-        msum = torch.sum
-        row_w = None
+        y_n = torch.tensor(float(n), dtype=params.x.dtype,
+                           device=params.x.device)
     else:
         y_n = torch.sum(mask)
+    return _assemble(params, params.x, data.y, data.control[:n], mask, y_n,
+                     y_n, 1.0, kernel_type, prior_type, u_collapse, jitter,
+                     emission_noise, eps)
 
-        def msum(rows):           # rows: (N,) or (N, D) — mask leading axis
-            w = mask if rows.dim() == 1 else mask[:, None]
-            return torch.sum(rows * w)
-        row_w = mask
-    batch = y_n
+
+def negative_elbo(params: GPSSMParams, data: SSMData, **kw) -> torch.Tensor:
+    """Scalar objective (reference's ``self.nll``, dgp_model.py:288/:297)."""
+    return elbo_terms(params, data, **kw)["nll"]
+
+
+def window_rows(t: torch.Tensor, start: Union[int, torch.Tensor],
+                length: int) -> torch.Tensor:
+    """Rows start .. start+length-1 of t.  ``start`` may be a 0-d or
+    1-element integer tensor on the device: the rows are gathered with
+    ``index_select``, so no value is read back to the host (``narrow``
+    would need a Python int)."""
+    idx = torch.arange(length, device=t.device) + (
+        start.reshape(()) if torch.is_tensor(start) else start)
+    return t.index_select(0, idx)
+
+
+def windowed_elbo_terms(params: GPSSMParams, data: SSMData,
+                        start: Union[int, torch.Tensor], window_n: int, *,
+                        kernel_type: str = "SquaredExponential",
+                        prior_type: str = "normal",
+                        u_collapse: bool = True,
+                        jitter: float = 1e-5,
+                        emission_noise: str = "auto",
+                        collapse_precision: str = "native",
+                        ds64_refine: Optional[int] = None,
+                        eps: Optional[Sequence[torch.Tensor]] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """Minibatch (random time window) objective, the reference's
+    batch_placeholder semantics made live (``ffvd_tpu/model/elbo.py:169-
+    306``).  With b0 = start, batch = window_n, Y_N = N:
+
+    - emission and x-dynamics terms: window sums / batch;
+    - collapsed H-gram and a-vector scaled by Y_N/batch
+      (conditionals_multi_output.py:246-248), logdet and quadratic / Y_N;
+    - trace term: window sum / Y_N, unscaled (the reference's choice);
+    - priors (prior_x0 on the global x₀, the hidden layers'): / Y_N.
+
+    At window_n == N, start == 0 this is ``elbo_terms``.  Masked data: Y_N
+    is the number of real transitions, batch the number of real ones in the
+    window (at least 1), every window sum mask-weighted.  ``eps``: one
+    (window_n, D) normal tensor per hidden layer, or None."""
+    _check_precision(collapse_precision)
+    n = params.n_transitions
+    dt, dev = params.x.dtype, params.x.device
+    mask = data.mask
+    if mask is None:
+        y_n = torch.tensor(float(n), dtype=dt, device=dev)
+        batch = torch.tensor(float(window_n), dtype=dt, device=dev)
+        mask_win = None
+        gram_scale = float(n) / float(window_n)
+    else:
+        mask_win = window_rows(mask, start, window_n)
+        y_n = torch.sum(mask)
+        batch = torch.clamp(torch.sum(mask_win), min=1.0)
+        gram_scale = y_n / batch
+    return _assemble(params, window_rows(params.x, start, window_n + 1),
+                     window_rows(data.y, start, window_n),
+                     window_rows(data.control, start, window_n), mask_win,
+                     y_n, batch, gram_scale, kernel_type, prior_type,
+                     u_collapse, jitter, emission_noise, eps)
+
+
+def windowed_negative_elbo(params: GPSSMParams, data: SSMData,
+                           start: Union[int, torch.Tensor], window_n: int,
+                           **kw) -> torch.Tensor:
+    return windowed_elbo_terms(params, data, start, window_n, **kw)["nll"]
+
+
+def _assemble(params, x, y, ctrl, mask, y_n, batch, gram_scale, kernel_type,
+              prior_type, u_collapse, jitter, emission_noise, eps):
+    """The terms over the transitions x[0] → x[1] … x[W-1] → x[W] with
+    observations y (W, P) and controls ctrl (W, U): full batch (x is the
+    whole trajectory, batch = Y_N, gram_scale 1) or a window."""
+    w = x.shape[0] - 1
+    if mask is None:
+        msum = torch.sum
+    else:
+        def msum(rows):           # rows: (W,) or (W, D) — mask leading axis
+            m = mask if rows.dim() == 1 else mask[:, None]
+            return torch.sum(rows * m)
     q = params.q
 
     # Emission term (dgp_model.py:248-250, :264).
-    y_mean = emission_mean(params.x[1:], params.c, params.d)
-    log_lik = msum(emission_log_lik_rows(params, data.y, y_mean,
-                                         emission_noise))
+    y_mean = emission_mean(x[1:], params.c, params.d)
+    log_lik = msum(emission_log_lik_rows(params, y, y_mean, emission_noise))
     nll_log_likelihood = -log_lik / batch
 
     # Priors (dgp_model.py:252, :286/:296, :326-334).
@@ -86,21 +182,24 @@ def elbo_terms(params: GPSSMParams, data: SSMData, *,
                                    params.z)
                   + priors.prior_x0(params.x[0])
                   + hyper_prior)
+    if params.hidden:
+        part_prior = part_prior + hidden_priors(kernel_type, prior_type,
+                                                params.hidden)
 
-    xc = gp_inputs(params, data)
+    xc = _gp_inputs(params, x[:w], ctrl, kernel_type, jitter, eps)
     pre = cond.kernel_precal(kernel_type, params.kernel, params.z, jitter)
 
     terms: Dict[str, torch.Tensor] = {}
     if u_collapse:
         term1, term2, trace = cond.collapsed_bound_terms(
-            kernel_type, params.kernel, pre, params.z, params.x, xc, q,
-            mask=row_w)
+            kernel_type, params.kernel, pre, params.z, x, xc, q,
+            mask=mask, gram_scale=gram_scale)
         later_term1 = term1 / y_n
         later_term2 = term2 / y_n
         nll_trace = trace / y_n
         # Residual random-walk dynamics prior (dgp_model.py:283-284).
         x_t_prior_q = -msum(logdensity_norm_diag_nonvec(
-            params.x[1:], params.x[:-1], torch.sqrt(q))) / batch
+            x[1:], x[:-1], torch.sqrt(q))) / batch
         nll_part_prior = -part_prior / y_n
         nll = (nll_part_prior + nll_log_likelihood + x_t_prior_q
                + nll_trace + later_term1 + later_term2)
@@ -108,9 +207,9 @@ def elbo_terms(params: GPSSMParams, data: SSMData, *,
     else:
         mean, var = cond.whitened_conditional(
             kernel_type, params.kernel, pre, params.z, params.u, xc)
-        mean = mean + params.x[:n]        # identity mean function (:346)
+        mean = mean + x[:w]               # identity mean function (:346)
         reg_trace = -0.5 * torch.sum(var / q[None, :], dim=1)
-        reg_x_prior = logdensity_norm_diag(params.x[1:], mean, torch.sqrt(q))
+        reg_x_prior = logdensity_norm_diag(x[1:], mean, torch.sqrt(q))
         nll_trace = -msum(reg_trace) / batch
         x_t_prior_q = -msum(reg_x_prior) / batch
         nll_part_prior = -(part_prior + priors.prior_u(params.u)) / y_n
@@ -124,8 +223,3 @@ def elbo_terms(params: GPSSMParams, data: SSMData, *,
         nll=nll,
     )
     return terms
-
-
-def negative_elbo(params: GPSSMParams, data: SSMData, **kw) -> torch.Tensor:
-    """Scalar objective (reference's ``self.nll``, dgp_model.py:288/:297)."""
-    return elbo_terms(params, data, **kw)["nll"]

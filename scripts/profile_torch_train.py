@@ -2,13 +2,19 @@
 """Where the time of the port's training step goes, on one GPU.
 
     python scripts/profile_torch_train.py [--iters 50] [--precision fp32]
+        [--cell c4|deep|window]
 
-Trains ballbeam C4 (``ffvd_tpu_torch``) for a few warm-up iterations, then
-profiles ``--iters`` more with ``torch.profiler`` and prints one JSON line:
+Trains one cell of PERF.md §4 (``ffvd_tpu_torch``): ``c4`` ballbeam C4,
+``deep`` flutter C4 with ``n_layers=2``, ``window`` C4 on the N=5000 kink
+data from a cold start with 256-step windows.  After a few warm-up
+iterations it profiles ``--iters`` more with ``torch.profiler`` and prints
+one JSON line:
 iterations per second, the device's busy share of the window (union of the
 CUDA kernel intervals over the wall time), CUDA kernels and host-device
-synchronisations per iteration, and the ops with the most device time.  The
-chrome trace goes to ``chiprun_out/profile_torch_train.json``.
+synchronisations per iteration, and the ops with the most device time;
+then the same for one ``evaluate()`` (the posterior rollouts; kernels per
+rollout step for a recursion).  The training chrome trace goes to
+``chiprun_out/profile_torch_train_<cell>.json``.
 """
 
 from __future__ import annotations
@@ -39,10 +45,30 @@ def _busy_us(events):
     return busy
 
 
+def _summary(prof, wall_us, n):
+    """The device's busy share of ``wall_us``, and per each of ``n``
+    repeats: CUDA kernels, host syncs or copies, and the 12 ops with the
+    most device time (their calls and device µs)."""
+    events = prof.events()
+    cuda_ev = [e for e in events if str(e.device_type).endswith("CUDA")]
+    syncs = [e for e in events
+             if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                           "cudaMemcpyAsync", "cudaMemcpy")]
+    dev_us = lambda a: getattr(a, "self_device_time_total",
+                               getattr(a, "self_cuda_time_total", 0.0))
+    top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:12]
+    return {"device_busy_share": _busy_us(cuda_ev) / wall_us,
+            "cuda_kernels": len(cuda_ev) / n,
+            "host_syncs_and_copies": len(syncs) / n,
+            "top_device_ops": [{"name": a.key, "calls": a.count / n,
+                                "device_us": dev_us(a) / n} for a in top]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--precision", choices=["fp32", "fp64"], default="fp32")
+    ap.add_argument("--cell", choices=["c4", "deep", "window"], default="c4")
     args = ap.parse_args(argv)
 
     import torch
@@ -53,8 +79,20 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA device")
     dtype = torch.float32 if args.precision == "fp32" else torch.float64
-    model = FFVDModel(FFVDConfig(dataset="ballbeam", case=4), device="cuda",
-                      dtype=dtype)
+    if args.cell == "window":
+        from ffvd_tpu_torch.data import generate_kink
+        from ffvd_tpu_torch.model.params import init_params_random
+        model = FFVDModel(
+            FFVDConfig(dataset="kink", case=4, minibatch_size=256),
+            device="cuda", dtype=dtype, dataset=generate_kink(n=5000),
+            params=init_params_random(
+                5000, 4, 100, 0, generator=torch.Generator().manual_seed(0),
+                device="cuda", dtype=dtype))
+    else:
+        cfg = (FFVDConfig(dataset="flutter", case=4, n_layers=2)
+               if args.cell == "deep" else FFVDConfig(dataset="ballbeam",
+                                                      case=4))
+        model = FFVDModel(cfg, device="cuda", dtype=dtype)
     model.fit(20)
     torch.cuda.synchronize()
 
@@ -65,29 +103,34 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
-    events = prof.events()
-    cuda_ev = [e for e in events if str(e.device_type).endswith("CUDA")]
-    syncs = [e for e in events
-             if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                           "cudaMemcpyAsync", "cudaMemcpy")]
-    dev_us = lambda a: getattr(a, "self_device_time_total",
-                               getattr(a, "self_cuda_time_total", 0.0))
-    top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:12]
+    model.evaluate()          # the first call builds the kernel
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as eprof:
+        t0 = time.perf_counter()
+        model.evaluate()
+        torch.cuda.synchronize()
+        eval_us = (time.perf_counter() - t0) * 1e6
+    train = _summary(prof, wall_us, args.iters)
+    ev = _summary(eprof, eval_us, 1)
+    steps = model.dataset.n_test
     out = {
-        "card": torch.cuda.get_device_name(0), "precision": args.precision,
+        "card": torch.cuda.get_device_name(0), "cell": args.cell,
+        "precision": args.precision,
         "iterations": args.iters, "it_per_s": args.iters / wall_us * 1e6,
         "ms_per_iter": wall_us / args.iters / 1e3,
-        "device_busy_share": _busy_us(cuda_ev) / wall_us,
-        "cuda_kernels_per_iter": len(cuda_ev) / args.iters,
-        "host_syncs_and_copies_per_iter": len(syncs) / args.iters,
-        "top_device_ops": [
-            {"name": a.key, "calls_per_iter": a.count / args.iters,
-             "device_us_per_iter": dev_us(a) / args.iters}
-            for a in top],
+        "device_busy_share": train["device_busy_share"],
+        "cuda_kernels_per_iter": train["cuda_kernels"],
+        "host_syncs_and_copies_per_iter": train["host_syncs_and_copies"],
+        "top_device_ops_per_iter": train["top_device_ops"],
+        "evaluate": {"ms": eval_us / 1e3, "rollout_steps": steps,
+                     "cuda_kernels_per_rollout_step": ev["cuda_kernels"]
+                     / steps, **ev},
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out_dir / "profile_torch_train.json"))
+    prof.export_chrome_trace(
+        str(out_dir / f"profile_torch_train_{args.cell}.json"))
     print(json.dumps(out))
 
 

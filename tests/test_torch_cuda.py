@@ -322,3 +322,92 @@ def test_linear_rollout_on_cuda(cuda, case):
         runs.append((xs.cpu(), vs.cpu()))
     for got, want in zip(runs[1], runs[0]):
         torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-12)
+
+
+def _deep_model(device, n=30, seed=0):
+    """``_pg_model`` with one hidden layer of the head's shapes, its
+    inducing outputs non-zero."""
+    import dataclasses
+    from ffvd_tpu_torch.model.params import HiddenLayerParams
+    params, data = _pg_model(device, n=n, seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    rnd = lambda *s: torch.randn(*s, generator=g, dtype=torch.float64)
+    layer = HiddenLayerParams(
+        u=0.5 * rnd(6, 2).to(device), z=rnd(6, 3).to(device),
+        kernel=KernelParams(torch.log(0.1 + 0.3 * rnd(2).abs()).to(device),
+                            torch.log(0.7 + rnd(2, 3).abs()).to(device)))
+    return dataclasses.replace(params, hidden=(layer,)), data
+
+
+@pytest.mark.parametrize("case", [4, 5])
+def test_deep_rollout_on_cuda_equals_cpu(cuda, case):
+    """The deep recursion (iid in C4; thinned with per-sub-step inter-layer
+    normals in C5) on the card equals the CPU's with the same injected
+    noise (fp64, rtol 1e-9) and launches no kernel."""
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.eval.rollout import collect_posterior
+    from ffvd_tpu_torch.inference.trainer import Trainer
+    cfg = FFVDConfig(case=case, num_inducing=6, x_dim=2, n_layers=2,
+                     posterior_sample_spacing=2)
+    g = torch.Generator().manual_seed(3)
+    noise = torch.randn(3, 15, 2, dtype=torch.float64, generator=g)
+    hidden = [torch.randn(3, 15, 2, dtype=torch.float64, generator=g)]
+    thin = prop = None
+    runs = []
+    for dev in ("cpu", cuda):
+        params, data = _deep_model(dev)
+        tr = Trainer(cfg, data)
+        state = tr.init_state(params)
+        if case == 5 and thin is None:
+            thin = {k: torch.randn((3, 2) + tuple(v.shape), generator=g,
+                                   dtype=torch.float64)
+                    for k, v in tr.subset.split(params).items()}
+            prop = [torch.randn(3, 2, 30, 2, generator=g,
+                                dtype=torch.float64)]
+        before = ro.rollout.launches
+        xs, vs, _ = collect_posterior(
+            tr, state, 15, num=3, noise=noise.to(dev),
+            hidden_noise=[h.to(dev) for h in hidden],
+            thin_noise=None if thin is None else
+            {k: v.to(dev) for k, v in thin.items()},
+            thin_prop=None if prop is None else [p.to(dev) for p in prop])
+        assert ro.rollout.launches == before
+        runs.append((xs.cpu(), vs.cpu()))
+    for got, want in zip(runs[1], runs[0]):
+        torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("deep", [False, True])
+def test_windowed_step_on_cuda_equals_cpu(cuda, deep):
+    """One windowed C5 outer step (21 SG-HMC sub-steps and the Adam step,
+    each on its own window, deep with inter-layer normals) with the same
+    injected draws: the card equals the CPU (fp64, rtol 1e-9), and the
+    window starts stay on the card."""
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.inference.sghmc import tree_normals
+    from ffvd_tpu_torch.inference.trainer import SUBSTEP_FLAGS, Trainer
+    cfg = FFVDConfig(case=5, num_inducing=6, x_dim=2, minibatch_size=8,
+                     n_layers=1 + int(deep))
+    g = torch.Generator().manual_seed(4)
+    draws, runs = None, []
+    for dev in ("cpu", cuda):
+        params, data = (_deep_model if deep else _pg_model)(dev)
+        tr = Trainer(cfg, data)
+        state = tr.init_state(params)
+        if draws is None:
+            draws = tr.grad_draws(len(SUBSTEP_FLAGS) + 1, g, params.x)
+            draws["noise"] = tree_normals(tr.subset.split(params), g,
+                                          (len(SUBSTEP_FLAGS),))
+            draws["feed"] = 0
+        on = {k: (v.to(dev) if torch.is_tensor(v) else
+                  [p.to(dev) for p in v] if isinstance(v, list) else
+                  {kk: vv.to(dev) for kk, vv in v.items()}
+                  if isinstance(v, dict) else v)
+              for k, v in draws.items()}
+        assert on["starts"].device.type == torch.device(dev).type
+        nll = tr.outer_step(state, **on)
+        runs.append((nll.cpu(), {k: v.detach().cpu() for k, v
+                                 in state.params.leaves().items()}))
+    torch.testing.assert_close(runs[1][0], runs[0][0], rtol=1e-9, atol=0)
+    for k, v in runs[0][1].items():
+        torch.testing.assert_close(runs[1][1][k], v, rtol=1e-9, atol=1e-12)

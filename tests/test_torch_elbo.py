@@ -142,8 +142,6 @@ def test_unported_objective_options_raise():
     params = init_params_from_warmstart(load_warmstart("ballbeam"))
     with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
         elbo_terms(params, data, collapse_precision="ds64")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        elbo_terms(params, data, key=0)
 
 
 # -- the eight TF golden fixtures -------------------------------------------

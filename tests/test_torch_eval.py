@@ -96,8 +96,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"x_dim": 2}, "item 8"), ({"num_inducing": 50}, "item 11"),
-    ({"n_layers": 2}, "item 8"), ({"collapse_precision": "hybrid"}, "item 9")])
+    ({"num_inducing": 50}, "item 11"),
+    ({"collapse_precision": "hybrid"}, "item 9")])
 def test_unported_model_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         FFVDModel(FFVDConfig(**kw), device="cpu")

@@ -1,5 +1,5 @@
 """Port parity, the LinearK rollout: the torch recursion of
-``gp_transition`` (``eval/rollout.py::linear_rollout``) against the JAX
+``gp_transition`` (``eval/rollout.py::recursion_rollout``) against the JAX
 package's ``_rollout_one`` (``ffvd_tpu/eval/rollout.py:44-83``), fed the
 normals JAX draws itself; and LinearK training against the JAX trainer.
 
@@ -7,7 +7,7 @@ normals JAX draws itself; and LinearK training against the JAX trainer.
   samples are ``vmap(_rollout_one)`` over ``split(key, S)``: fp64, rtol
   1e-10.
 - per sample (C5 with LinearK): each of S distinct parameter sets and its
-  collapsed q(U) through ``linear_rollout`` against ``_rollout_one`` for
+  collapsed q(U) through ``recursion_rollout`` against ``_rollout_one`` for
   the same set, rtol 1e-10; and thinned ``collect_posterior`` against
   ``build_collect`` with JAX's thinning draws, rtol 1e-8 as the SE thinned
   test holds it (tests/test_torch_eval_sghmc.py).
@@ -37,8 +37,8 @@ from ffvd_tpu.model.params import init_params_from_warmstart as j_init
 
 from ffvd_tpu_torch.config import FFVDConfig
 from ffvd_tpu_torch.data import create_dataset, load_warmstart
-from ffvd_tpu_torch.eval.rollout import (collect_posterior, linear_rollout,
-                                         rollout_controls)
+from ffvd_tpu_torch.eval.rollout import (collect_posterior,
+                                         recursion_rollout, rollout_controls)
 from ffvd_tpu_torch.inference.trainer import Trainer
 from ffvd_tpu_torch.model.params import (LEAF_PATHS, SSMData,
                                          init_params_from_warmstart,
@@ -96,7 +96,7 @@ def test_iid_collect_matches_jax():
 
 def test_per_sample_recursion_matches_rollout_one():
     """S parameter sets perturbed from one model, each with its collapsed
-    q(U) (q_sqrt on): ``linear_rollout`` per set against ``_rollout_one``."""
+    q(U) (q_sqrt on): ``recursion_rollout`` per set against ``_rollout_one``."""
     leaves, _, tr = _setup(5)
     rng = np.random.RandomState(3)
     controls = rollout_controls(tr.data, T)
@@ -120,7 +120,7 @@ def test_per_sample_recursion_matches_rollout_one():
             KT, KW["jitter"], jp.kernel, jp.z, u_val, q_sqrt, jp.q,
             jp.x[-1], jnp.asarray(controls.numpy()), key)
         noise = torch.tensor(np.asarray(_roll_noise(key)))[None]
-        xs, vs = linear_rollout(tr, params_from_numpy(lv), controls, noise)
+        xs, vs = recursion_rollout(tr, params_from_numpy(lv), controls, noise)
         np.testing.assert_allclose(xs[0].numpy(), np.asarray(jxs), **TOL)
         np.testing.assert_allclose(vs[0].numpy(), np.asarray(jvs), **TOL)
 
@@ -209,10 +209,10 @@ def test_path_follows_kernel_type(monkeypatch, kernel_type, uses_kernel):
                         lambda *a, **k: called.append("kernel") or
                         ro.rollout_reference(*a, **k))
     import ffvd_tpu_torch.eval.rollout as ev
-    real = ev.linear_rollout
-    monkeypatch.setattr(ev, "linear_rollout",
-                        lambda *a, **k: called.append("linear") or real(*a,
-                                                                       **k))
+    real = ev.recursion_rollout
+    monkeypatch.setattr(ev, "recursion_rollout",
+                        lambda *a, **k: called.append("linear") or
+                        real(*a, **k))
     leaves, _, _ = small_model(0, n=20, m=6, d=D)
     cfg = FFVDConfig(case=4, **dict(KW, kernel_type=kernel_type))
     tr = Trainer(cfg, SSMData(y=torch.randn(20, 1, dtype=torch.float64),

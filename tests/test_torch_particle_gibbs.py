@@ -309,11 +309,6 @@ def test_pg_ancestor_trace_matches_rts_smoother():
     assert np.abs(ms[:5] - mf[:5]).max() > 0.15
 
 
-def test_deep_sweep_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pg.make_pg_fn(FFVDConfig(case=6, n_layers=2))
-
-
 def test_sweep_replaces_only_x_and_keeps_it_out_of_autograd():
     leaves, y, control = small_model(5, n=12)
     _, cfg = _configs(True, 2, 6, 8)

@@ -89,11 +89,6 @@ def test_label_tree_matches_jax(case):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"case": 6, "n_layers": 2}, "item 8"),
-    ({"case": 4, "n_layers": 2}, "item 8"),
-    ({"case": 4, "minibatch_size": 64}, "item 8"),
-    ({"case": 5, "n_layers": 2}, "item 8"),
-    ({"case": 2, "minibatch_size": 64}, "item 8"),
     ({"case": 4, "collapse_precision": "ds64"}, "item 9")])
 def test_unported_cases_raise_at_construction(kw, item):
     data = SSMData(y=torch.zeros(500, 1), control=torch.zeros(1000, 1))
