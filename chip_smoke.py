@@ -37,12 +37,21 @@ that each print one JSON line:
    objective before and after, 20 full-batch iterations for comparison,
    ``evaluate()`` (the kernel at T=5000 without controls, one launch), and
    the kernel against its plain version at those shapes;
+4g. the hybrid precision path in fp32: ballbeam C4 with
+   ``collapse_precision="hybrid"``, ``fit(1000)`` (500 native iterations,
+   then 500 on the float64 collapsed segment), each half timed, and
+   ``evaluate()`` (one launch, its Lm⁻¹ held against ``ds_precal``'s);
+4h. ensemble pooling in fp32: ``fit_ensemble`` of two ballbeam C4 chains
+   (``init_jitter=1e-3``, 200 iterations each), ``ensemble_evaluate``;
 5. 200 fp64 training iterations on cuda against the same on the CPU;
 5b. 5 fp64 C5 iterations with injected sampler draws, cuda against CPU;
 5c. 3 fp64 C6 iterations with injected sweep draws, cuda against CPU, and
    one sweep's resampling indices on both;
 5d. 3 fp64 deep C4 iterations with injected inter-layer normals, and the
    deep rollout with injected noise, cuda against CPU;
+5e. the float64 collapsed segment, cuda against CPU: ``ds_collapsed_terms``
+   at the ballbeam warm start in fp32 (values and gradients), and 3 ds64
+   C4 iterations with fp64 leaves;
 6. kernel timing with CUDA events at S=10 and S=64, shared and per-sample
    inputs, with the launch plan, and one ``{"kernels": [...]}`` line.
 
@@ -866,6 +875,223 @@ def phase_window_path(torch, ro, card):
     return out
 
 
+def _time_runs(torch, trainer, log):
+    """Wrap ``trainer.run`` so each call is timed, synchronised, into
+    ``log`` as (precision, iterations, seconds)."""
+    run = trainer.run
+
+    def timed(state, n, **kw):
+        torch.cuda.synchronize()
+        t = time.time()
+        state, nll = run(state, n, **kw)
+        nll.cpu()
+        log.append((trainer.train_precision, n, time.time() - t))
+        return state, nll
+    trainer.run = timed
+
+
+def _spy_rollout_inputs(er, ro, seen):
+    """Route ``eval.rollout``'s kernel calls through a recorder of the
+    factors it passes; the real wrapper, and its launch count, run."""
+    import types
+
+    def rollout(*args, **kw):
+        seen.update(lm_inv=args[2], q_sqrt=args[4])
+        return ro.rollout(*args, **kw)
+    er.rollout_ops = types.SimpleNamespace(
+        rollout=rollout, rollout_batched=ro.rollout_batched)
+
+
+def phase_hybrid_path(torch, ro, card, native):
+    """Phase 4g: ballbeam C4 with ``collapse_precision="hybrid"`` in fp32
+    at full width: ``fit(1000)``, the first 500 native and the last 500
+    (the default ``hybrid_tail_iters``) on the float64 collapsed segment,
+    each half timed; the tail trainer's precision; ``evaluate()`` with the
+    launch count set to 0 before the path and read after it, and the Lm⁻¹
+    the kernel got held against ``ds_precal``'s.  RMSE beside phase 4's
+    native C4."""
+    from ffvd_tpu_torch.api import FFVDModel
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.eval import rollout as er
+    from ffvd_tpu_torch.model.ds_collapse import ds_precal
+    cfg = FFVDConfig(dataset="ballbeam", case=4, collapse_precision="hybrid")
+    ro.rollout.launches = 0          # this path starts here
+    model = FFVDModel(cfg, device="cuda")
+    check(model.dtype == torch.float32, f"hybrid dtype {model.dtype}")
+    runs = []
+    tail = model._tail_trainer()
+    _time_runs(torch, model.trainer, runs)
+    _time_runs(torch, tail, runs)
+    t0 = time.time()
+    model.fit(1000)
+    nll = model.nll_trace.cpu()
+    train_s = time.time() - t0
+    launches_fit = ro.rollout.launches
+    seen = {}
+    _spy_rollout_inputs(er, ro, seen)
+    try:
+        t1 = time.time()
+        res = model.evaluate()
+        torch.cuda.synchronize()
+        eval_ms = (time.time() - t1) * 1e3
+    finally:
+        er.rollout_ops = ro
+    launches_eval = ro.rollout.launches - launches_fit
+    # A second evaluate() after the counts are read: the first one pays the
+    # float64 segment's first-use cost on the card.
+    t2 = time.time()
+    model.evaluate()
+    torch.cuda.synchronize()
+    eval2_ms = (time.time() - t2) * 1e3
+    p = model.params
+    with torch.no_grad():
+        want = ds_precal(cfg.kernel_type, p.kernel, p.z, cfg.jitter).lm_inv
+    got = seen.get("lm_inv")
+    lm_err = (float((got - want).abs().max()) if got is not None
+              else float("inf"))
+    halves = {prec: {"iterations": n, "seconds": sec, "it_per_s": n / sec}
+              for prec, n, sec in runs}
+    b = 1000 - cfg.hybrid_tail_iters          # the switch to the tail
+    out = {"card": card, "dataset": "ballbeam", "case": "C4",
+           "collapse_precision": "hybrid", "precision": "fp32",
+           "iterations": int(nll.numel()),
+           "hybrid_tail_iters": cfg.hybrid_tail_iters,
+           "runs": [list(r) for r in runs], "halves": halves,
+           "train_seconds": train_s,
+           "tail_trainer_precision": tail.train_precision,
+           "eval_trainer_is_tail": model.eval_trainer is tail,
+           "nll_first": float(nll[0]), "nll_last_native": float(nll[b - 1]),
+           "nll_first_tail": float(nll[b]), "nll_last": float(nll[-1]),
+           "eval_ms": eval_ms, "eval_ms_second_call": eval2_ms,
+           "rmse": res["rmse"], "nll": res["nll"],
+           "native_c4_rmse": native["rmse"],
+           "native_c4_iterations": native["iterations"],
+           "lm_inv_dtype": str(got.dtype) if got is not None else None,
+           "lm_inv_max_abs_diff_vs_ds_precal": lm_err,
+           "lm_inv_bitwise_equal": got is not None and torch.equal(got, want),
+           "rollout_launches_fit": launches_fit,
+           "rollout_launches_evaluate": launches_eval}
+    emit("hybrid_path", **out)
+    check([r[:2] for r in runs] == [("native", 500), ("ds64", 500)],
+          f"hybrid: runs {runs}")
+    check(tail.train_precision == "ds64" and model.eval_trainer is tail,
+          "hybrid: the tail trainer is not ds64")
+    check(bool(torch.isfinite(nll).all()), "hybrid: non-finite nll")
+    check(float(nll[-1]) < float(nll[0]), "hybrid: nll did not fall")
+    check(math.isfinite(res["rmse"]) and math.isfinite(res["nll"]),
+          f"hybrid: non-finite RMSE/NLL {res['rmse']}/{res['nll']}")
+    check(launches_fit == 0 and launches_eval == 1,
+          f"hybrid: rollout launches {launches_fit} in fit, {launches_eval} "
+          "in evaluate")
+    check(got is not None and got.dtype == torch.float32
+          and lm_err <= 1e-6 * float(want.abs().max()),
+          f"hybrid: the kernel's Lm⁻¹ is not ds_precal's ({lm_err})")
+    return out
+
+
+def phase_ensemble_path(torch, ro, card):
+    """Phase 4h: ``fit_ensemble`` of two ballbeam C4 chains in fp32
+    (seeds 0 and 1, ``init_jitter=1e-3`` on chain 1's warm start), 200
+    iterations each, then ``ensemble_evaluate``: one launch a chain, the
+    launch count set to 0 before the path and read after it."""
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.eval.ensemble import ensemble_evaluate, fit_ensemble
+    ro.rollout.launches = 0          # this path starts here
+    t0 = time.time()
+    models = fit_ensemble(FFVDConfig(dataset="ballbeam", case=4), 2,
+                          device="cuda", init_jitter=1e-3,
+                          num_iterations=200)
+    traces = [m.nll_trace.cpu() for m in models]
+    train_s = time.time() - t0
+    launches_fit = ro.rollout.launches
+    t1 = time.time()
+    res = ensemble_evaluate(models)
+    eval_ms = (time.time() - t1) * 1e3
+    launches_eval = ro.rollout.launches - launches_fit
+    out = {"card": card, "dataset": "ballbeam", "case": "C4", "chains": 2,
+           "init_jitter": 1e-3, "iterations_per_chain": 200,
+           "precision": "fp32", "train_seconds": train_s,
+           "train_it_per_s": 400 / train_s, "eval_ms": eval_ms,
+           "rmse": res["rmse"], "nll": res["nll"],
+           "nll_no_spread": res["nll_no_spread"],
+           "per_chain": res["per_chain"],
+           "nll_last": [float(t[-1]) for t in traces],
+           "rollout_launches_fit": launches_fit,
+           "rollout_launches_evaluate": launches_eval}
+    emit("ensemble_path", **out)
+    check(all(bool(torch.isfinite(t).all()) for t in traces),
+          "ensemble: non-finite nll")
+    check(float(traces[0][0]) != float(traces[1][0]),
+          "ensemble: the jitter did not move chain 1")
+    check(math.isfinite(res["rmse"]) and math.isfinite(res["nll"]),
+          f"ensemble: non-finite RMSE/NLL {res['rmse']}/{res['nll']}")
+    check(launches_fit == 0 and launches_eval == 2,
+          f"ensemble: rollout launches {launches_fit} in fit, "
+          f"{launches_eval} in evaluate (one a chain)")
+    return out
+
+
+def phase_fp64_segment(torch):
+    """Phase 5e: the float64 collapsed segment, cuda against CPU.
+    ``ds_collapsed_terms`` at the ballbeam warm start with fp32 leaves:
+    the three terms within 2 fp32 ulps, the gradients of the kernel
+    hypers, z, x and log Q at rtol 1e-5; then 3 ds64 C4 iterations with
+    fp64 leaves, the nll traces within rtol 1e-9."""
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.data import create_dataset, load_warmstart
+    from ffvd_tpu_torch.inference.trainer import Trainer
+    from ffvd_tpu_torch.model.ds_collapse import ds_collapsed_terms
+    from ffvd_tpu_torch.model.elbo import gp_inputs
+    from ffvd_tpu_torch.model.params import (GPSSMParams, SSMData,
+                                             init_params_from_warmstart)
+    t0 = time.time()
+    ds = create_dataset("ballbeam")
+    ws = load_warmstart("ballbeam")
+    cfg = FFVDConfig(dataset="ballbeam", case=4, collapse_precision="ds64")
+    paths = ("kernel.log_variance", "kernel.log_lengthscales", "z", "x",
+             "log_q")
+    seg, runs = {}, {}
+    for dev in ("cpu", "cuda"):
+        as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)
+        data = SSMData(y=as_t(ds.y_train, torch.float32),
+                       control=as_t(ds.control, torch.float32))
+        p = init_params_from_warmstart(ws, device=dev, dtype=torch.float32)
+        leaves = {k: v.requires_grad_(k in paths)
+                  for k, v in p.leaves().items()}
+        p = GPSSMParams.from_leaves(leaves)
+        terms = ds_collapsed_terms(cfg.kernel_type, p.kernel, p.z, p.x,
+                                   gp_inputs(p, data), p.log_q)
+        grads = torch.autograd.grad(sum(terms), [leaves[k] for k in paths])
+        seg[dev] = ([float(t.detach()) for t in terms],
+                    [g.detach().cpu() for g in grads])
+        data64 = SSMData(y=as_t(ds.y_train, torch.float64),
+                         control=as_t(ds.control, torch.float64))
+        tr = Trainer(cfg, data64)
+        t1 = time.time()
+        _, trace = tr.run(tr.init_state(init_params_from_warmstart(
+            ws, device=dev, dtype=torch.float64)), 3)
+        runs[dev] = (trace.cpu(), time.time() - t1)
+    import numpy as np
+    ulps = [abs(a - b) / float(np.spacing(np.float32(abs(b))))
+            for a, b in zip(seg["cuda"][0], seg["cpu"][0])]
+    grad_rel = {k: float(((g - c).abs() / c.abs().clamp(min=1e-30)).max())
+                for k, g, c in zip(paths, seg["cuda"][1], seg["cpu"][1])}
+    grad_ok = all(torch.allclose(g, c, rtol=1e-5,
+                                 atol=1e-7 * float(c.abs().max()))
+                  for g, c in zip(seg["cuda"][1], seg["cpu"][1]))
+    tc, tg = runs["cpu"][0], runs["cuda"][0]
+    rel = float(((tg - tc).abs() / tc.abs()).max())
+    emit("fp64_segment", terms_cuda=seg["cuda"][0], terms_cpu=seg["cpu"][0],
+         terms_ulps=ulps, grad_max_rel_diff=grad_rel,
+         grads_within_rtol_1e_5=grad_ok, ds64_c4_iterations=3,
+         ds64_c4_trace_max_rel_diff=rel, seconds_cuda=runs["cuda"][1],
+         seconds_cpu=runs["cpu"][1], seconds=time.time() - t0)
+    check(max(ulps) <= 2, f"fp64 segment terms cuda vs cpu: {ulps} ulps")
+    check(grad_ok, f"fp64 segment gradients cuda vs cpu: {grad_rel}")
+    check(torch.allclose(tg, tc, rtol=1e-9, atol=0),
+          f"ds64 C4 trace cuda vs cpu: max rel {rel}")
+
+
 def phase_fp64_deep(torch):
     """Phase 5d: flutter C4 with ``n_layers=2`` in fp64, 3 outer
     iterations with the same injected inter-layer normals on cuda and on
@@ -1220,10 +1446,14 @@ def main() -> int:
     timed("linear_path", phase_linear_path, torch, ro, card)
     deep = timed("deep_path", phase_deep_path, torch, ro, card)
     window = timed("window_path", phase_window_path, torch, ro, card)
+    hybrid = timed("hybrid_path", phase_hybrid_path, torch, ro, card,
+                   REPORT["main_path"])
+    ensemble = timed("ensemble_path", phase_ensemble_path, torch, ro, card)
     timed("fp64_train", phase_fp64_train, torch)
     timed("fp64_sampler", phase_fp64_sampler, torch)
     timed("fp64_pg", phase_fp64_pg, torch)
     timed("fp64_deep", phase_fp64_deep, torch)
+    timed("fp64_segment", phase_fp64_segment, torch)
     timing = timed("timing", phase_timing, torch, ro)
     emit("phase_seconds", **seconds, total=time.time() - t0)
 
@@ -1241,7 +1471,8 @@ def main() -> int:
             "C4": launches,
             **{k: v["rollout_launches_fit"] + v["rollout_launches_evaluate"]
                for k, v in {**sampler, "C6": pg_path, "deep_C4": deep,
-                            "window_C4": window}.items()}},
+                            "window_C4": window, "hybrid_C4": hybrid,
+                            "ensemble_C4x2": ensemble}.items()}},
         "fp64": {"ms": f64["ms"], "plain_ms": f64["plain_ms"],
                  "bound_ms": f64["bound_ms"], "bound_by": f64["bound_by"],
                  "max_abs_err": worst["fp64"], "plan": f64["plan"]},

@@ -3,7 +3,10 @@ the reference's ``vfegpssm/models.py``).
 
 ``FFVDModel``: config → data → warm start → trainer → posterior predictions.
 It runs on ``cuda`` unless the caller passes ``device="cpu"``, in fp32 on
-the card and fp64 on the CPU unless ``dtype`` says otherwise.
+the card and fp64 on the CPU unless ``dtype`` says otherwise.  Under
+``collapse_precision="hybrid"`` a collapsed case trains native and runs the
+last ``hybrid_tail_iters`` of each ``fit`` call, and every posterior
+collection, on a second trainer with the float64 collapsed segment.
 """
 
 from __future__ import annotations
@@ -69,10 +72,6 @@ class FFVDModel:
         _warn_deep_usage(cfg)
         self.device = resolve_device(device)
         self.dtype = dtype or default_dtype(self.device)
-        if cfg.collapse_precision != "native":
-            raise NotImplementedError(
-                "collapse_precision='ds64'/'hybrid' is not ported yet "
-                "(ROADMAP Queue 1, item 9)")
         self.dataset = (dataset if dataset is not None
                         else create_dataset(cfg.dataset))
         if params is None:
@@ -119,23 +118,59 @@ class FFVDModel:
     def params(self) -> GPSSMParams:
         return self.state.params
 
+    @property
+    def hybrid(self) -> bool:
+        """collapse_precision="hybrid" on a collapsed case (C4/C5): native
+        burn-in, then a float64-segment tail (the fp32 gradient bias is a
+        near-optimum effect, DESIGN §12).  Only a collapsed case has the
+        segment."""
+        return (self.cfg.collapse_precision == "hybrid"
+                and self.cfg.case_config.u_collapse)
+
+    def _tail_trainer(self) -> Trainer:
+        """The ds64 Trainer of the hybrid tail, built once.  It shares the
+        ``TrainState``: the labels are the same and the state's Adam is
+        bound to the same leaves, so Adam's moments carry across."""
+        if getattr(self, "_ds64_trainer", None) is None:
+            self._ds64_trainer = Trainer(
+                dataclasses.replace(self.cfg, collapse_precision="ds64"),
+                self.data, pg_fn=self.trainer.pg_fn)
+        return self._ds64_trainer
+
+    @property
+    def eval_trainer(self) -> Trainer:
+        """The trainer of posterior collection: the ds64 one under the
+        hybrid schedule, since thinning runs at the sharply trained
+        post-tail point where the fp32 gradient is biased."""
+        return self._tail_trainer() if self.hybrid else self.trainer
+
     def fit(self, num_iterations: Optional[int] = None,
             chunk_size: int = 500,
             eval_every: Optional[int] = None,
             eval_samples: int = 3,
             tensorboard_dir: Optional[str] = None) -> "FFVDModel":
         """Train; with ``eval_every`` also record (iteration, RMSE, NLL)
-        into ``self.rmse_seq``."""
+        into ``self.rmse_seq``.
+
+        Under the hybrid schedule the last ``cfg.hybrid_tail_iters``
+        iterations OF THIS CALL run the ds64 bound, and no chunk crosses
+        that boundary (per-call semantics, as ``ffvd_tpu/api.py::fit``)."""
         if tensorboard_dir is not None:
             raise NotImplementedError(
                 "TensorBoard summaries are not ported yet (ROADMAP Queue 1, "
                 "item 10: utils/metrics.py)")
         n = num_iterations or self.cfg.total_iterations
+        tail = min(self.cfg.hybrid_tail_iters, n) if self.hybrid else 0
         done = 0
         step = min(chunk_size, eval_every or n)
         while done < n:
             m = min(step, n - done)
-            self.state, nlls = self.trainer.run(
+            trainer = self.trainer
+            if done < n - tail:
+                m = min(m, n - tail - done)   # don't cross the boundary
+            elif tail:
+                trainer = self._tail_trainer()
+            self.state, nlls = trainer.run(
                 self.state, m, chunk_size=chunk_size,
                 generator=self.train_generator)
             self.nll_trace = torch.cat([self.nll_trace, nlls])
@@ -152,9 +187,10 @@ class FFVDModel:
 
     def _collect(self, test_len: int, num_samples: Optional[int] = None,
                  noise: Optional[torch.Tensor] = None, thin_noise=None):
-        """Posterior rollouts; the thinned SG-HMC chain is kept."""
+        """Posterior rollouts through ``eval_trainer``; the thinned SG-HMC
+        chain is kept."""
         xs, vs, self.state = collect_posterior(
-            self.trainer, self.state, test_len, num=num_samples,
+            self.eval_trainer, self.state, test_len, num=num_samples,
             generator=self.generator, noise=noise, thin_noise=thin_noise,
             thin_generator=self.train_generator)
         return xs, vs

@@ -55,7 +55,10 @@ def build_argparser() -> argparse.ArgumentParser:
                         "noise from Philox, so only the default is accepted")
     p.add_argument("--hyperparameter_sampling", action="store_true")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--n_ensemble", type=int, default=1)
+    p.add_argument("--n_ensemble", type=int, default=1,
+                   help="train K independent chains (seeds seed..seed+K-1) "
+                        "and report the pooled mixture prediction "
+                        "(PARITY.md §2d)")
     p.add_argument("--eval_spread", action="store_true",
                    help="keep the across-rollout spread of predictive means "
                         "in the predictive variance")
@@ -74,9 +77,16 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--precision", choices=["fp32", "fp64"], default=None,
                    help="default: fp64 on cpu, fp32 on gpu")
     p.add_argument("--collapse_precision",
-                   choices=["native", "ds64", "hybrid"], default="native")
+                   choices=["native", "ds64", "hybrid"], default="native",
+                   help="'ds64' evaluates the collapsed GP bound as one "
+                        "float64 segment at the float32 parameter values "
+                        "(DESIGN.md §12); 'hybrid' trains native and runs "
+                        "the last --hybrid_tail_iters iterations, and the "
+                        "evaluation, on it")
     p.add_argument("--hybrid_tail_iters", type=int, default=500)
-    p.add_argument("--ds64_refine", type=int, default=None)
+    p.add_argument("--ds64_refine", type=int, default=None,
+                   help="accepted for the JAX CLI's sake; float64 has no "
+                        "double-single refinement, so it has no effect")
     p.add_argument("--results_dir", type=str, default="results")
     p.add_argument("--chunk_size", type=int, default=500)
     return p
@@ -101,8 +111,6 @@ def _log_clip_kwargs(value, lower=None):
 def _not_ported(args):
     """The flags whose paths are not ported yet, with their ROADMAP item."""
     out = []
-    if args.n_ensemble > 1:
-        out.append("--n_ensemble > 1 (Queue 1, item 10: eval/ensemble.py)")
     if args.tensorboard_dir is not None:
         out.append("--tensorboard_dir (Queue 1, item 10: utils/metrics.py)")
     if args.prng_impl != "threefry2x32":
@@ -160,6 +168,9 @@ def main(argv=None):
             else "cpu")
     print(f"#### {dataset} | case C{cfg.case} | {name} {precision} ####")
 
+    if args.n_ensemble > 1:
+        return _ensemble(args, cfg, dataset, device, dtype)
+
     model = FFVDModel(cfg, device=device, dtype=dtype)
 
     t0 = time.time()
@@ -182,6 +193,37 @@ def main(argv=None):
     print(f"saved {out}")
     return {"rmse": res["rmse"], "nll": res["nll"],
             "train_time": train_time, "final_elbo": -nll_last}
+
+
+def _ensemble(args, cfg, dataset, device, dtype):
+    """--n_ensemble K: K chains trained one after another, pooled; the
+    results npz holds the pooled predictions beside chain 0's parameters
+    and ELBO trace (``ffvd_tpu/cli.py:220-246``)."""
+    from ffvd_tpu_torch.eval.ensemble import ensemble_evaluate, fit_ensemble
+    if args.eval_spread:
+        print("note: --eval_spread is subsumed by ensemble pooling "
+              "(the mixture's cross-chain spread term is always on)")
+    t0 = time.time()
+    models = fit_ensemble(cfg, args.n_ensemble, device=device, dtype=dtype,
+                          chunk_size=args.chunk_size)
+    final_elbo = -float(models[0].nll_trace[-1])            # synchronises
+    train_time = time.time() - t0
+    res = ensemble_evaluate(models)
+    for i, pc in enumerate(res["per_chain"]):
+        print(f"chain {i} (seed {cfg.seed + i}): "
+              f"RMSE {pc['rmse']:.6f}  NLL {pc['nll']:.6f}")
+    print(f"ensemble({args.n_ensemble}) pooled: "
+          f"RMSE: {res['rmse']:.6f}  NLL: {res['nll']:.6f}  "
+          f"(no-spread NLL {res['nll_no_spread']:.6f}; "
+          f"trained {train_time:.2f}s)")
+    out = _results_path(args, dataset, cfg)
+    models[0].save_results(
+        out, case=cfg.case_config.name,
+        predictions=(res["predict_y"], res["predict_y_var"]))
+    print(f"saved {out}")
+    return {"rmse": res["rmse"], "nll": res["nll"],
+            "per_chain": res["per_chain"], "train_time": train_time,
+            "final_elbo": final_elbo}
 
 
 if __name__ == "__main__":

@@ -4,9 +4,9 @@ trainability partition.
 A copy of ``ffvd_tpu/config.py`` (the port imports nothing of the JAX
 package).  The field set, defaults and validation are the same, so a config
 built for one package means the same run in the other; the long rationale
-for each SGHMC/PG/ds64 field lives in the JAX module.  Fields for paths the
-port has not reached yet (ds64/hybrid precision) are accepted here and
-rejected where they would be used (``inference/trainer.py``, ``api.py``).
+for each SGHMC/PG/ds64 field lives in the JAX module.  ``collapse_precision``
+"ds64" is a float64 segment in the port (``model/ds_collapse.py``), so
+``ds64_refine`` is validated and has no effect.
 """
 
 from __future__ import annotations

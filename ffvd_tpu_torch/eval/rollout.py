@@ -25,6 +25,14 @@ layers, for a deep model): the port of the JAX package's production
 rollout, a ``lax.scan`` of the same step.  ``cfg.kernel_type`` and
 ``cfg.n_layers`` alone choose the path.
 
+Under ``cfg.collapse_precision`` "ds64" or "hybrid", for every case and
+both paths, the head's Kmm factors come from ``ds_precal`` and a collapsed
+q(U) from ``ds_collapsed_u_posterior`` (the float64 segment,
+``model/ds_collapse.py``), as JAX's ``_rollout_one(ds64=...)`` does: at the
+sharply trained points that mode reaches, fp32 factors of H inflate the
+rollout variance (PARITY §2f).  They are float32, promoted to the params'
+dtype in an fp64 run.
+
 Metrics (base_model.py:340-349, :629):
   ŷ   = mean_samples(x C) + d,   v̂ = mean_samples(x_var C²) + R
   RMSE = sqrt(mean((Y_test[:30] − ŷ[:30])²)) · Y_train_std
@@ -44,6 +52,8 @@ from ffvd_tpu_torch.model.conditionals import (Precal, collapsed_u_posterior,
                                                gp_transition, kernel_precal)
 from ffvd_tpu_torch.model.deep import (hidden_normals, hidden_precals,
                                        propagate_step)
+from ffvd_tpu_torch.model.ds_collapse import (ds_collapsed_u_posterior,
+                                              ds_precal)
 from ffvd_tpu_torch.model.elbo import gp_inputs
 from ffvd_tpu_torch.model.likelihoods import emission_mean, use_full_r
 from ffvd_tpu_torch.model.params import GPSSMParams, SSMData
@@ -51,19 +61,45 @@ from ffvd_tpu_torch.ops import rollout as rollout_ops
 from ffvd_tpu_torch.ops.kernels import KernelParams
 
 
+def _ds64(cfg) -> bool:
+    """Does evaluation take the float64 segment (rollout.py:122-129)?"""
+    return cfg.collapse_precision in ("ds64", "hybrid")
+
+
+def rollout_precal(cfg, params: GPSSMParams) -> Precal:
+    """The head's Kmm factors for the rollout: ``ds_precal``'s under
+    ds64/hybrid (float32, promoted to the params' dtype), else
+    ``kernel_precal``'s."""
+    if not _ds64(cfg):
+        return kernel_precal(cfg.kernel_type, params.kernel, params.z,
+                             cfg.jitter)
+    pre = ds_precal(cfg.kernel_type, params.kernel, params.z, cfg.jitter)
+    return Precal(lm=pre.lm.to(params.z.dtype),
+                  lm_inv=pre.lm_inv.to(params.z.dtype))
+
+
 def u_and_qsqrt(trainer: Trainer, params: GPSSMParams, data: SSMData,
                 pre: Precal):
     """(U, q_sqrt) for the rollout: the collapsed q(U) mean and its upper
     factor chol(H)⁻ᵀ, or the trained U and None when U is not collapsed.
     A deep model's training inputs are mean-propagated through its hidden
-    layers: the collapse is a point summary (rollout.py:131-161)."""
+    layers: the collapse is a point summary (rollout.py:131-161).  ``pre``
+    is read by the native collapse only; under ds64/hybrid the float64
+    segment factorises Kmm itself."""
     cfg = trainer.cfg
     if not cfg.case_config.u_collapse:
         return params.u, None
-    u_val, q_sqrt = collapsed_u_posterior(
-        cfg.kernel_type, params.kernel, pre, params.z, params.x,
-        gp_inputs(params, data, kernel_type=cfg.kernel_type,
-                  jitter=cfg.jitter), params.q)
+    xc = gp_inputs(params, data, kernel_type=cfg.kernel_type,
+                   jitter=cfg.jitter)
+    if _ds64(cfg):
+        u_val, q_sqrt = ds_collapsed_u_posterior(
+            cfg.kernel_type, params.kernel, params.z, params.x, xc,
+            params.log_q, jitter=cfg.jitter)
+        u_val, q_sqrt = u_val.to(params.z.dtype), q_sqrt.to(params.z.dtype)
+    else:
+        u_val, q_sqrt = collapsed_u_posterior(
+            cfg.kernel_type, params.kernel, pre, params.z, params.x, xc,
+            params.q)
     if cfg.rollout_qsqrt_dim0:
         # reference slip compat (conditionals_multi_output.py:322): dim 0's
         # q(U) factor applied to every dim's variance
@@ -113,7 +149,7 @@ def posterior_inputs(trainer: Trainer, samples: List[GPSSMParams]) -> dict:
     cols = {k: [] for k in ("log_variance", "log_lengthscales", "z",
                             "lm_inv", "u_val", "q_sqrt", "q", "x0")}
     for p in samples:
-        pre = kernel_precal(cfg.kernel_type, p.kernel, p.z, cfg.jitter)
+        pre = rollout_precal(cfg, p)
         u_val, q_sqrt = u_and_qsqrt(trainer, p, trainer.data, pre)
         for k, v in (("log_variance", p.kernel.log_variance),
                      ("log_lengthscales", p.kernel.log_lengthscales),
@@ -151,7 +187,7 @@ def recursion_rollout(trainer: Trainer, params: GPSSMParams,
     ``hidden_noise``, one (S, T, D) tensor per hidden layer; the identity
     skip stays on x_t.  Returns (xs, var_tot), each (S, T, D)."""
     cfg = trainer.cfg
-    pre = kernel_precal(cfg.kernel_type, params.kernel, params.z, cfg.jitter)
+    pre = rollout_precal(cfg, params)
     u_val, q_sqrt = u_and_qsqrt(trainer, params, trainer.data, pre)
     hpre = hidden_precals(cfg.kernel_type, cfg.jitter, params.hidden)
     q = params.q
@@ -226,7 +262,7 @@ def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
     if recursion:
         return (*recursion_rollout(trainer, params, controls, noise,
                                    hidden_noise), state)
-    pre = kernel_precal(cfg.kernel_type, params.kernel, params.z, cfg.jitter)
+    pre = rollout_precal(cfg, params)
     u_val, q_sqrt = u_and_qsqrt(trainer, params, trainer.data, pre)
     xs, vs = rollout_ops.rollout(
         params.kernel, params.z, pre.lm_inv, u_val, q_sqrt, params.q,

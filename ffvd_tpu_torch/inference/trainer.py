@@ -26,8 +26,12 @@ evaluation stay full batch and mean-propagated.
 
 The random numbers come from the caller's ``torch.Generator`` or are
 injected (``noise=``, ``feed=``, ``pg=``, ``starts=``, ``prop=``), so the
-tests can feed both packages the same draws.  ds64 raises at construction
-until ROADMAP Queue 1 item 9 ports it.
+tests can feed both packages the same draws.
+
+``cfg.collapse_precision="ds64"`` trains on the collapsed bound evaluated
+as one float64 segment (``model/ds_collapse.py``); "hybrid" trains native
+here, and ``api.FFVDModel`` runs the last ``cfg.hybrid_tail_iters`` of a
+``fit`` on a second, ds64 Trainer that shares the ``TrainState``.
 """
 
 from __future__ import annotations
@@ -151,10 +155,6 @@ class Trainer:
                  pg_fn: Optional[Callable] = None):
         """``pg_fn``: the particle-Gibbs sweep of case C6
         (``particle_gibbs.make_pg_fn``), required there."""
-        if cfg.collapse_precision != "native":
-            raise NotImplementedError(
-                "collapse_precision='ds64'/'hybrid' is not ported yet "
-                "(ROADMAP Queue 1, item 9)")
         if cfg.case_config.x_pg and pg_fn is None:
             raise ValueError("case C6 requires a particle-Gibbs function")
         self.cfg = cfg
@@ -164,9 +164,15 @@ class Trainer:
         self.has_sghmc = SGHMC in self.labels.values()
         self.has_adam = ADAM in self.labels.values()
         self.subset = SubsetOps(self.labels)
+        # "hybrid" trains native; its ds64 tail is a second Trainer with
+        # collapse_precision="ds64" (api.FFVDModel.fit), on the same state.
+        self.train_precision = ("native" if cfg.collapse_precision == "hybrid"
+                                else cfg.collapse_precision)
         kw = dict(kernel_type=cfg.kernel_type, prior_type=cfg.prior_type,
                   u_collapse=cfg.case_config.u_collapse, jitter=cfg.jitter,
-                  emission_noise=cfg.emission_noise)
+                  emission_noise=cfg.emission_noise,
+                  collapse_precision=self.train_precision,
+                  ds64_refine=cfg.ds64_refine)
         self.nll_fn = functools.partial(negative_elbo, **kw)
         # A deep model samples its inter-layer noise per training gradient.
         self.stochastic = cfg.n_layers > 1

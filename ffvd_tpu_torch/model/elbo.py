@@ -13,7 +13,9 @@ y/control[start : start+W), with the reference's batch scaling.
 A deep model (``params.hidden``, ``model/deep.py``) propagates the GP
 inputs through its hidden layers, adds their priors, and takes ``eps``, the
 per-layer inter-layer normals of one gradient evaluation (None: layer
-means).
+means).  ``collapse_precision="ds64"`` evaluates the collapsed segment in
+float64 (``model/ds_collapse.py``); everything else stays in the params'
+dtype.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from ffvd_tpu_torch.model import conditionals as cond
 from ffvd_tpu_torch.model import priors
 from ffvd_tpu_torch.model.deep import hidden_priors, propagate_hidden
+from ffvd_tpu_torch.model.ds_collapse import ds_collapsed_terms
 from ffvd_tpu_torch.model.likelihoods import (emission_log_lik_rows,
                                               emission_mean)
 from ffvd_tpu_torch.model.params import GPSSMParams, SSMData
@@ -51,13 +54,6 @@ def _gp_inputs(params, x_prev, ctrl, kernel_type, jitter, eps):
     return torch.cat([h, ctrl], dim=1) if ctrl.shape[1] > 0 else h
 
 
-def _check_precision(collapse_precision):
-    if collapse_precision != "native":
-        raise NotImplementedError(
-            "collapse_precision='ds64'/'hybrid' is not ported yet "
-            "(ROADMAP Queue 1, item 9: precision modes)")
-
-
 def elbo_terms(params: GPSSMParams, data: SSMData, *,
                kernel_type: str = "SquaredExponential",
                prior_type: str = "normal",
@@ -72,9 +68,15 @@ def elbo_terms(params: GPSSMParams, data: SSMData, *,
 
     ``eps``: a deep model's inter-layer normals, one (N, D) tensor per
     hidden layer (JAX draws them as ``normal(fold_in(key, i), (N, D))``);
-    None propagates the layer means.  ``collapse_precision`` other than
-    "native" belongs to a path not ported yet."""
-    _check_precision(collapse_precision)
+    None propagates the layer means.
+
+    ``collapse_precision``: "ds64" evaluates the collapsed segment (gram,
+    Kmm factors, H and its terms) as one float64 segment at the float32
+    values of its inputs (``ds_collapse.ds_collapsed_terms``), the fix for
+    the fp32 gradient bias of that segment (DESIGN §12); any other value
+    evaluates it in the params' dtype.  Uncollapsed objectives and a deep
+    model's hidden-layer propagation ignore it.  ``ds64_refine`` is
+    accepted and has no effect (float64 has nothing to refine)."""
     n = params.n_transitions
     mask = data.mask
     if mask is None:
@@ -84,7 +86,7 @@ def elbo_terms(params: GPSSMParams, data: SSMData, *,
         y_n = torch.sum(mask)
     return _assemble(params, params.x, data.y, data.control[:n], mask, y_n,
                      y_n, 1.0, kernel_type, prior_type, u_collapse, jitter,
-                     emission_noise, eps)
+                     emission_noise, eps, collapse_precision)
 
 
 def negative_elbo(params: GPSSMParams, data: SSMData, **kw) -> torch.Tensor:
@@ -127,8 +129,9 @@ def windowed_elbo_terms(params: GPSSMParams, data: SSMData,
     At window_n == N, start == 0 this is ``elbo_terms``.  Masked data: Y_N
     is the number of real transitions, batch the number of real ones in the
     window (at least 1), every window sum mask-weighted.  ``eps``: one
-    (window_n, D) normal tensor per hidden layer, or None."""
-    _check_precision(collapse_precision)
+    (window_n, D) normal tensor per hidden layer, or None.
+    ``collapse_precision``: as in ``elbo_terms``, the gram scale inside the
+    float64 segment."""
     n = params.n_transitions
     dt, dev = params.x.dtype, params.x.device
     mask = data.mask
@@ -146,7 +149,8 @@ def windowed_elbo_terms(params: GPSSMParams, data: SSMData,
                      window_rows(data.y, start, window_n),
                      window_rows(data.control, start, window_n), mask_win,
                      y_n, batch, gram_scale, kernel_type, prior_type,
-                     u_collapse, jitter, emission_noise, eps)
+                     u_collapse, jitter, emission_noise, eps,
+                     collapse_precision)
 
 
 def windowed_negative_elbo(params: GPSSMParams, data: SSMData,
@@ -156,10 +160,13 @@ def windowed_negative_elbo(params: GPSSMParams, data: SSMData,
 
 
 def _assemble(params, x, y, ctrl, mask, y_n, batch, gram_scale, kernel_type,
-              prior_type, u_collapse, jitter, emission_noise, eps):
+              prior_type, u_collapse, jitter, emission_noise, eps,
+              collapse_precision):
     """The terms over the transitions x[0] → x[1] … x[W-1] → x[W] with
     observations y (W, P) and controls ctrl (W, U): full batch (x is the
-    whole trajectory, batch = Y_N, gram_scale 1) or a window."""
+    whole trajectory, batch = Y_N, gram_scale 1) or a window.  Kmm is
+    factorised only on the branches that read it: the ds64 segment
+    factorises its own."""
     w = x.shape[0] - 1
     if mask is None:
         msum = torch.sum
@@ -187,13 +194,19 @@ def _assemble(params, x, y, ctrl, mask, y_n, batch, gram_scale, kernel_type,
                                                 params.hidden)
 
     xc = _gp_inputs(params, x[:w], ctrl, kernel_type, jitter, eps)
-    pre = cond.kernel_precal(kernel_type, params.kernel, params.z, jitter)
 
     terms: Dict[str, torch.Tensor] = {}
     if u_collapse:
-        term1, term2, trace = cond.collapsed_bound_terms(
-            kernel_type, params.kernel, pre, params.z, x, xc, q,
-            mask=mask, gram_scale=gram_scale)
+        if collapse_precision == "ds64":
+            term1, term2, trace = ds_collapsed_terms(
+                kernel_type, params.kernel, params.z, x, xc, params.log_q,
+                jitter=jitter, mask=mask, gram_scale=gram_scale)
+        else:
+            pre = cond.kernel_precal(kernel_type, params.kernel, params.z,
+                                     jitter)
+            term1, term2, trace = cond.collapsed_bound_terms(
+                kernel_type, params.kernel, pre, params.z, x, xc, q,
+                mask=mask, gram_scale=gram_scale)
         later_term1 = term1 / y_n
         later_term2 = term2 / y_n
         nll_trace = trace / y_n
@@ -205,6 +218,7 @@ def _assemble(params, x, y, ctrl, mask, y_n, batch, gram_scale, kernel_type,
                + nll_trace + later_term1 + later_term2)
         terms.update(later_term1=later_term1, later_term2=later_term2)
     else:
+        pre = cond.kernel_precal(kernel_type, params.kernel, params.z, jitter)
         mean, var = cond.whitened_conditional(
             kernel_type, params.kernel, pre, params.z, params.u, xc)
         mean = mean + x[:w]               # identity mean function (:346)

@@ -2,11 +2,12 @@
 """Where the time of the port's training step goes, on one GPU.
 
     python scripts/profile_torch_train.py [--iters 50] [--precision fp32]
-        [--cell c4|deep|window]
+        [--cell c4|ds64|deep|window]
 
 Trains one cell of PERF.md §4 (``ffvd_tpu_torch``): ``c4`` ballbeam C4,
-``deep`` flutter C4 with ``n_layers=2``, ``window`` C4 on the N=5000 kink
-data from a cold start with 256-step windows.  After a few warm-up
+``ds64`` the same with ``collapse_precision="ds64"`` (the collapsed segment
+in float64), ``deep`` flutter C4 with ``n_layers=2``, ``window`` C4 on the
+N=5000 kink data from a cold start with 256-step windows.  After a few warm-up
 iterations it profiles ``--iters`` more with ``torch.profiler`` and prints
 one JSON line:
 iterations per second, the device's busy share of the window (union of the
@@ -68,7 +69,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--precision", choices=["fp32", "fp64"], default="fp32")
-    ap.add_argument("--cell", choices=["c4", "deep", "window"], default="c4")
+    ap.add_argument("--cell", choices=["c4", "ds64", "deep", "window"],
+                    default="c4")
     args = ap.parse_args(argv)
 
     import torch
@@ -89,9 +91,11 @@ def main(argv=None):
                 5000, 4, 100, 0, generator=torch.Generator().manual_seed(0),
                 device="cuda", dtype=dtype))
     else:
-        cfg = (FFVDConfig(dataset="flutter", case=4, n_layers=2)
-               if args.cell == "deep" else FFVDConfig(dataset="ballbeam",
-                                                      case=4))
+        cfg = {"c4": FFVDConfig(dataset="ballbeam", case=4),
+               "ds64": FFVDConfig(dataset="ballbeam", case=4,
+                                  collapse_precision="ds64"),
+               "deep": FFVDConfig(dataset="flutter", case=4, n_layers=2),
+               }[args.cell]
         model = FFVDModel(cfg, device="cuda", dtype=dtype)
     model.fit(20)
     torch.cuda.synchronize()

@@ -17,6 +17,7 @@ fp64 particle-Gibbs sweep on the card equals the CPU's with the same
 injected draws (identical resampling indices, x within rtol 1e-9), its
 recursion and backtrack under ``set_sync_debug_mode("error")``; and the
 LinearK rollout on the card equals the CPU's (rtol 1e-9) with no launch.
+A ds64 C4 step (the collapsed segment in float64) equals the CPU's.
 """
 
 import pytest
@@ -411,3 +412,31 @@ def test_windowed_step_on_cuda_equals_cpu(cuda, deep):
     torch.testing.assert_close(runs[1][0], runs[0][0], rtol=1e-9, atol=0)
     for k, v in runs[0][1].items():
         torch.testing.assert_close(runs[1][1][k], v, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ds64_step_on_cuda_equals_cpu(cuda, dtype):
+    """One ds64 C4 outer step (the collapsed segment in float64 on the card)
+    with the same leaves: the card's nll and leaves equal the CPU's (fp64
+    leaves rtol 1e-9; fp32 leaves rtol 1e-5, one Adam step)."""
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.inference.trainer import Trainer
+    from ffvd_tpu_torch.model.params import GPSSMParams, SSMData
+    cfg = FFVDConfig(case=4, num_inducing=6, x_dim=2,
+                     collapse_precision="ds64")
+    runs = []
+    for dev in ("cpu", cuda):
+        params, data = _pg_model(dev)
+        params = GPSSMParams.from_leaves({k: v.to(dtype) for k, v
+                                          in params.leaves().items()})
+        data = SSMData(y=data.y.to(dtype), control=data.control.to(dtype))
+        tr = Trainer(cfg, data)
+        state = tr.init_state(params)
+        nll = tr.outer_step(state)
+        runs.append((nll.cpu(), {k: v.detach().cpu() for k, v
+                                 in state.params.leaves().items()}))
+    tol = (dict(rtol=1e-9, atol=1e-12) if dtype == torch.float64
+           else dict(rtol=1e-5, atol=1e-6))
+    torch.testing.assert_close(runs[1][0], runs[0][0], **tol)
+    for k, v in runs[0][1].items():
+        torch.testing.assert_close(runs[1][1][k], v, **tol)

@@ -138,10 +138,26 @@ def test_elbo_with_prior_types_and_mask_match_jax():
 
 
 def test_unported_objective_options_raise():
-    data, _ = _ballbeam()
+    """``collapse_precision="ds64"`` (Queue 1, item 9) raised here until it
+    was ported: at the warm start it now gives the native terms at the
+    float32-rounded point, within 4e-6·max(|v|, 1), and JAX's fp64 ones
+    likewise (the segment's precision contract, tests/test_ds_collapse.py:
+    244-252); the terms outside the segment are the native ones."""
+    data, jdata = _ballbeam()
     params = init_params_from_warmstart(load_warmstart("ballbeam"))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        elbo_terms(params, data, collapse_precision="ds64")
+    ds = elbo_terms(params, data, collapse_precision="ds64")
+    rounded = params_from_numpy({k: v.float().double().numpy()
+                                 for k, v in params.leaves().items()})
+    native = elbo_terms(rounded, data)
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32).astype(jnp.float64),
+                      j_init(j_load_warmstart("ballbeam")))
+    jt = _j_terms(jp, jdata, u_collapse=True)
+    for k in TERMS:
+        for ref in (float(native[k]), float(jt[k])):
+            assert abs(float(ds[k]) - ref) <= 4e-6 * max(abs(ref), 1.0), k
+    for k in ("nll_log_likelihood", "nll_part_prior", "x_t_prior_Q"):
+        np.testing.assert_allclose(float(ds[k]), float(elbo_terms(
+            params, data)[k]), rtol=1e-12)
 
 
 # -- the eight TF golden fixtures -------------------------------------------

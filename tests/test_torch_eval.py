@@ -99,6 +99,14 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     ({"num_inducing": 50}, "item 11"),
     ({"collapse_precision": "hybrid"}, "item 9")])
 def test_unported_model_options_raise(kw, item):
+    """``num_inducing`` other than the warm start's still raises, naming
+    its ROADMAP item; hybrid precision (item 9) is ported and runs."""
+    if item == "item 9":
+        m = FFVDModel(FFVDConfig(**kw, hybrid_tail_iters=1), device="cpu")
+        assert m.hybrid and m.eval_trainer.train_precision == "ds64"
+        res = m.fit(2).evaluate(num_samples=2)
+        assert np.isfinite(res["rmse"]) and np.isfinite(res["nll"])
+        return
     with pytest.raises(NotImplementedError, match=item):
         FFVDModel(FFVDConfig(**kw), device="cpu")
 
@@ -113,5 +121,14 @@ def test_cli_runs_on_cpu_and_writes_results(tmp_path, capsys):
     with np.load(files[0], allow_pickle=True) as z:
         assert z["ll_seq"].shape == (4,) and str(z["case"]) == "C4"
     assert "cpu fp64" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="n_ensemble"):
-        cli_main(["--n_ensemble", "2", "--platform", "cpu"])
+    # --n_ensemble 2: two chains pooled, the same results-npz contract
+    ens = cli_main(["--file_index", "5", "--case_val", "4", "--n_ensemble",
+                    "2", "--iterations", "1", "--samples", "2",
+                    "--eval_spread", "--platform", "cpu",
+                    "--results_dir", str(tmp_path / "ens")])
+    assert len(ens["per_chain"]) == 2 and np.isfinite(ens["nll"])
+    files = list((tmp_path / "ens" / "ballbeam").glob("C4VFE_result_*"))
+    assert len(files) == 1
+    with np.load(files[0], allow_pickle=True) as z:
+        assert z["ll_seq"].shape == (2,) and z["y_test_vfe"].shape == (500,)
+    assert "ensemble(2) pooled" in capsys.readouterr().out

@@ -91,9 +91,19 @@ def test_label_tree_matches_jax(case):
 @pytest.mark.parametrize("kw,item", [
     ({"case": 4, "collapse_precision": "ds64"}, "item 9")])
 def test_unported_cases_raise_at_construction(kw, item):
-    data = SSMData(y=torch.zeros(500, 1), control=torch.zeros(1000, 1))
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(FFVDConfig(**kw), data)
+    """ds64 (ROADMAP Queue 1, item 9) raised here until it was ported: it
+    now constructs, trains on the float64 segment, and equals JAX's
+    ``train_precision``; "hybrid" trains native (its tail is api.py's)."""
+    tr, state = _port(FFVDConfig(dataset="ballbeam", **kw))
+    assert tr.train_precision == JTrainer(
+        JConfig(dataset="ballbeam", **kw),
+        JSSMData(y=jnp.zeros((500, 1)), control=jnp.zeros((1000, 1)))
+    ).train_precision == "ds64", item
+    _, trace = tr.run(state, 2, chunk_size=2)
+    np.testing.assert_allclose(trace[0], ANCHOR_NLL, rtol=1e-6)
+    hybrid = FFVDConfig(dataset="ballbeam", case=4,
+                        collapse_precision="hybrid")
+    assert _port(hybrid)[0].train_precision == "native"
 
 
 def test_sanitize_grads():
