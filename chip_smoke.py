@@ -11,11 +11,12 @@ that each print one JSON line:
    (ballbeam warm start and its collapsed q(U): S=10, T=500, D=4, M=100,
    Din=5), with and without q_sqrt, fp64 and fp32, shared noise and zero
    noise; then, on random inputs with shared noise, the launch plan's other
-   branches: factors read from global memory (fp64, M=320) and a cluster of
-   six CTAs (D=6);
+   branches: factors read from global memory (fp64, M=320; fp32, M=512)
+   and a cluster of six CTAs (D=6);
 2b. the kernel with per-sample inputs (``rollout_batched``, S=10 parameter
    sets perturbed from the warm start) against its plain version, with and
-   without q_sqrt, fp64 and fp32, resident and global (fp64, M=320);
+   without q_sqrt, fp64 and fp32, resident and global (fp64, M=320; fp32,
+   M=512), and fp32 at the 80 and 40 rows that phase 4i launches;
 3. the in-kernel generator: moments of 2²⁰ draws, and the standardised
    step-1 residuals of a 65,536-sample rollout (with the phase's seconds);
 4. the main path in fp32: ``FFVDModel(FFVDConfig("ballbeam", case=4))`` on
@@ -49,11 +50,25 @@ that each print one JSON line:
    one sweep's resampling indices on both;
 5d. 3 fp64 deep C4 iterations with injected inter-layer normals, and the
    deep rollout with injected noise, cuda against CPU;
+4i. the chain axis in fp32: ballbeam C4 as 8 chains of one
+   ``MultiChainTrainer`` for 1000 iterations (aggregate chain-iterations/s
+   beside phase 4's single-chain rate, split-R̂ over the tail), its 8×10
+   ``multichain_moments`` rollouts in one launch, kernels and host syncs
+   of 8 chains against one; C5 as 4 chains for 20 iterations, thinned on
+   the batched gradient, 4×10 rows in one per-sample launch;
+4j. BASELINE config 5 in fp32: all six datasets at M=512 in one
+   ``MultiDatasetTrainer`` step, 200 warm-up and 200 timed iterations,
+   kernels, host syncs and device time by kernel class an iteration, then
+   ``evaluate()``: six launches on the global-memory plan;
 5e. the float64 collapsed segment, cuda against CPU: ``ds_collapsed_terms``
    at the ballbeam warm start in fp32 (values and gradients), and 3 ds64
    C4 iterations with fp64 leaves;
+5f. chains in fp64, cuda against CPU: 3 chains of C4 for 20 iterations, 2
+   of C5 for 3 with injected draws; a checkpoint resume on the card (C5
+   fp32, the CUDA generator restored) bit-equal to the uninterrupted run;
 6. kernel timing with CUDA events at S=10 and S=64, shared and per-sample
-   inputs, with the launch plan, and one ``{"kernels": [...]}`` line.
+   inputs, with the launch plan; fp32 at 80 per-sample rows and at M=512
+   (global plan); and one ``{"kernels": [...]}`` line.
 
 The last lines are the card's name and power limit, the kernels line, and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  Without
@@ -205,21 +220,27 @@ def call_batched(fn, inp, q_sqrt=True, **kw):
 
 
 def phase_per_sample_vs_plain(torch, ro):
-    """Phase 2b: the kernel with per-sample inputs (one launch, S=10
+    """Phase 2b: the kernel with per-sample inputs (one launch of S
     parameter sets) against ``rollout_reference_batched`` on the same
-    inputs and noise: at the main shapes (resident), with and without
-    q_sqrt, fp64 over all T and fp32 over the first 30 steps; and on the
-    global path (fp64, M=320)."""
+    inputs and noise: at the main shapes (resident, S=10), with and without
+    q_sqrt, fp64 over all T and fp32 over the first 30 steps; on the global
+    path (fp64, M=320; fp32, M=512); and fp32 at the main shapes with the
+    rows of phase 4i's launches (S=80: 8 chains × 10, more clusters than
+    one wave of SMs; S=40: 4 chains × 10)."""
     gen = torch.Generator().manual_seed(4321)
     cases, worst = [], {"fp32": 0.0, "fp32_all_t": 0.0, "fp64": 0.0}
-    shapes = [("fp64", torch.float64, None), ("fp32", torch.float32, None),
-              ("fp64", torch.float64, 320)]
-    for name, dtype, m in shapes:
+    shapes = [("fp64", torch.float64, None, S),
+              ("fp32", torch.float32, None, S),
+              ("fp64", torch.float64, 320, S),
+              ("fp32", torch.float32, 512, S),
+              ("fp32", torch.float32, None, 80),
+              ("fp32", torch.float32, None, 40)]
+    for name, dtype, m, rows in shapes:
         base = (main_shape_inputs(torch, dtype) if m is None
                 else random_inputs(torch, dtype, 4, m, 20))
-        inp = per_sample_inputs(torch, base, S)
+        inp = per_sample_inputs(torch, base, rows)
         t_len = inp["controls"].shape[0]
-        noise = torch.randn((S, t_len, 4), generator=gen,
+        noise = torch.randn((rows, t_len, 4), generator=gen,
                             dtype=torch.float64).to("cuda", dtype)
         for with_q in (True, False):
             before = ro.rollout.launches
@@ -245,13 +266,13 @@ def phase_per_sample_vs_plain(torch, ro):
                 worst["fp32_all_t"] = max(worst["fp32_all_t"], err_all)
             distinct = not torch.allclose(vk[0], vk[1])
             cases.append({"dtype": name, "M": m or 100, "T": t_len,
-                          "q_sqrt": with_q, "steps_held": h,
+                          "S": rows, "q_sqrt": with_q, "steps_held": h,
                           "max_abs_err": err, "max_abs_err_all_t": err_all,
                           "launches": launched, "samples_differ": distinct,
                           "ok": ok, "plan": plan._asdict()})
             check(ok and distinct and bool(torch.isfinite(xk).all()),
                   f"per-sample kernel vs plain: {cases[-1]}")
-    emit("per_sample_vs_plain", S=S,
+    emit("per_sample_vs_plain",
          tolerance={"fp64": "rtol 1e-9, atol 1e-12, all T",
                     "fp32": "rtol 1e-4, atol 1e-5, first 30 steps"},
          cases=cases, worst=worst)
@@ -309,10 +330,12 @@ def phase_kernel_vs_plain(torch, ro):
                               "plan": ro.rollout.last_plan._asdict()})
                 check(ok and finite, f"kernel vs plain: {cases[-1]}")
     # The plan's other branches, on random inputs with shared noise:
-    # global-memory factors (fp64 M=320) and six CTAs a cluster (D=6).
+    # global-memory factors (fp64 M=320; fp32 M=512, the six-dataset
+    # path's shape) and six CTAs a cluster (D=6).
     other = []
     for name, dtype, d, m, t_len, want in (
             ("fp64", torch.float64, 4, 320, 20, dict(resident=False)),
+            ("fp32", torch.float32, 4, 512, 20, dict(resident=False)),
             ("fp64", torch.float64, 6, 100, 60, dict(cluster=6)),
             ("fp32", torch.float32, 6, 100, 60, dict(cluster=6))):
         inp = random_inputs(torch, dtype, d, m, t_len)
@@ -1031,6 +1054,285 @@ def phase_ensemble_path(torch, ro, card):
     return out
 
 
+def _launch_log(ro):
+    """(rows, plan) of every kernel launch since ``rollout.log`` was
+    cleared."""
+    return [{"rows": r, "plan": p._asdict()} for r, p in ro.rollout.log]
+
+
+def _cuda_data(torch, name, dtype):
+    from ffvd_tpu_torch.data import create_dataset, load_warmstart
+    from ffvd_tpu_torch.model.params import (SSMData,
+                                             init_params_from_warmstart)
+    ds = create_dataset(name)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    return ds, SSMData(y=as_t(ds.y_train), control=as_t(ds.control)), \
+        init_params_from_warmstart(load_warmstart(name), device="cuda",
+                                   dtype=dtype)
+
+
+def _pooled_metrics(chains, ds):
+    from ffvd_tpu_torch.eval.ensemble import _metrics, pool_moments
+    py, pv = pool_moments(chains)
+    rmse, nll = _metrics(py, pv, ds.y_test, ds.y_train_std, HORIZON)
+    per = [dict(zip(("rmse", "nll"), _metrics(
+        y.mean(axis=0), v.mean(axis=0) + r2, ds.y_test, ds.y_train_std,
+        HORIZON))) for y, v, r2 in chains]
+    return {"rmse": rmse, "nll": nll, "per_chain": per}
+
+
+def phase_multichain_path(torch, ro, card, single):
+    """Phase 4i: the chain axis in fp32.  Ballbeam C4 as 8 chains of one
+    ``MultiChainTrainer`` (warm start perturbed by 1e-3·N(0,1) per chain)
+    for 1000 iterations, then ``multichain_moments``: all 8×10 rollouts in
+    one launch.  Kernels and host syncs of 10 profiled iterations, 8 chains
+    against one.  Then C5 as 4 chains for 20 iterations, thinned on the
+    batched gradient, and its 4×10 rollouts in one per-sample launch.  The
+    launch count is set to 0 before each path and read after it."""
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.eval.ensemble import multichain_moments
+    from ffvd_tpu_torch.inference.trainer import Trainer
+    from ffvd_tpu_torch.parallel import MultiChainTrainer
+    from ffvd_tpu_torch.utils.profiling import profile_window, summarize
+    ds, data, p0 = _cuda_data(torch, "ballbeam", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = FFVDConfig(dataset="ballbeam", case=4)
+    ro.rollout.launches = 0          # this path starts here
+    mct = MultiChainTrainer(cfg, data, 8)
+    state = mct.init_state(mct.stack_params(p0, gen))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state, trace = mct.run(state, 1000, generator=gen)
+    trace = trace.cpu()
+    train_s = time.time() - t0
+    launches_fit = ro.rollout.launches
+    t1 = time.time()
+    ro.rollout.log.clear()
+    chains, state = multichain_moments(
+        mct, state, ds.n_test, generator=torch.Generator().manual_seed(1))
+    log = _launch_log(ro)
+    eval_ms = (time.time() - t1) * 1e3
+    launches_eval = ro.rollout.launches - launches_fit
+    c4 = {"chains": 8, "iterations": 1000, "train_seconds": train_s,
+          "chain_it_per_s": 8 * 1000 / train_s,
+          "single_chain_it_per_s_phase4": single["train_it_per_s"],
+          "rhat_tail": mct.rhat(trace), "nll_first": trace[0].tolist(),
+          "nll_last": trace[-1].tolist(), "moments_ms": eval_ms,
+          "rollout_launches_fit": launches_fit,
+          "rollout_launches_evaluate": launches_eval, "launches": log,
+          **_pooled_metrics(chains, ds)}
+    check(bool(torch.isfinite(trace).all()), "multichain C4: non-finite nll")
+    check(len(set(trace[-1].tolist())) == 8,
+          "multichain C4: the chains did not decorrelate")
+    check(launches_fit == 0 and launches_eval == 1
+          and [e["rows"] for e in log] == [80],
+          f"multichain C4: launches {launches_fit}/{launches_eval} {log}")
+    check(all(math.isfinite(v) for r in [c4] + c4["per_chain"]
+              for v in (r["rmse"], r["nll"])),
+          f"multichain C4: non-finite RMSE/NLL {c4}")
+    # 8 chains against one: kernels, syncs and ms an iteration, profiled
+    one = Trainer(cfg, data)
+    one_state = one.init_state(p0)
+    one.run(one_state, 5)
+    prof1, w1 = profile_window(lambda: one.run(one_state, 10))
+    prof8, w8 = profile_window(lambda: mct.run(state, 10, generator=gen))
+    c4["profiled_10_iterations"] = {"single": summarize(prof1, w1, 10),
+                                    "chains_8": summarize(prof8, w8, 10),
+                                    "ms_per_iter_single": w1 / 1e4,
+                                    "ms_per_iter_chains_8": w8 / 1e4}
+
+    ro.rollout.launches = 0          # the C5 path starts here
+    m5 = MultiChainTrainer(FFVDConfig(dataset="ballbeam", case=5), data, 4)
+    s5 = m5.init_state(m5.stack_params(p0, gen))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    s5, t5 = m5.run(s5, 20, generator=gen)
+    t5 = t5.cpu()
+    train5_s = time.time() - t0
+    launches_fit5 = ro.rollout.launches
+    t1 = time.time()
+    ro.rollout.log.clear()
+    chains5, s5 = multichain_moments(
+        m5, s5, ds.n_test, generator=torch.Generator().manual_seed(2),
+        thin_generator=gen)
+    log5 = _launch_log(ro)
+    eval5_ms = (time.time() - t1) * 1e3
+    launches_eval5 = ro.rollout.launches - launches_fit5
+    c5 = {"chains": 4, "iterations": 20, "train_seconds": train5_s,
+          "chain_it_per_s": 4 * 20 / train5_s, "moments_ms": eval5_ms,
+          "thinning_sub_steps": 10 * 32,
+          "rollout_launches_fit": launches_fit5,
+          "rollout_launches_evaluate": launches_eval5, "launches": log5,
+          **_pooled_metrics(chains5, ds)}
+    emit("multichain_path", card=card, dataset="ballbeam", precision="fp32",
+         C4=c4, C5=c5)
+    check(bool(torch.isfinite(t5).all()), "multichain C5: non-finite nll")
+    check(launches_fit5 == 0 and launches_eval5 == 1
+          and [e["rows"] for e in log5] == [40],
+          f"multichain C5: launches {launches_fit5}/{launches_eval5} {log5}")
+    check(all(math.isfinite(v) for r in [c5] + c5["per_chain"]
+              for v in (r["rmse"], r["nll"])),
+          f"multichain C5: non-finite RMSE/NLL {c5}")
+    return {"C4x8": launches_fit + launches_eval,
+            "C5x4": launches_fit5 + launches_eval5}
+
+
+def phase_six_datasets(torch, ro, card):
+    """Phase 4j: BASELINE config 5 in fp32, the protocol of
+    ``bench.py:186-215``: all six datasets resized to M=512, padded to a
+    common N with a mask, C4 in one ``MultiDatasetTrainer`` step; 200
+    warm-up and 200 timed iterations; kernels, host syncs and device time
+    by kernel class of 10 profiled iterations; then ``evaluate()``: each
+    dataset one launch on the kernel's global-memory plan."""
+    from ffvd_tpu_torch.config import DATASETS, FFVDConfig
+    from ffvd_tpu_torch.data import create_dataset
+    from ffvd_tpu_torch.parallel import MultiDatasetTrainer, stack_datasets
+    from ffvd_tpu_torch.utils.profiling import profile_window, summarize
+    ro.rollout.launches = 0          # this path starts here
+    data, params, lens = stack_datasets(DATASETS, device="cuda",
+                                        dtype=torch.float32, m=512)
+    mdt = MultiDatasetTrainer(FFVDConfig(dataset="ballbeam", case=4,
+                                         num_inducing=512), data)
+    state = mdt.init_state(params)
+    t0 = time.time()
+    state, warm = mdt.run(state, 200, chunk_size=200)
+    warm = warm.cpu()
+    warm_s = time.time() - t0
+    t1 = time.time()
+    state, timed_nll = mdt.run(state, 200, chunk_size=200)
+    timed_nll = timed_nll.cpu()
+    dt = time.time() - t1
+    launches_fit = ro.rollout.launches
+    dss = [create_dataset(n) for n in DATASETS]
+    t2 = time.time()
+    ro.rollout.log.clear()
+    res = mdt.evaluate(state, dss, lens,
+                       generator=torch.Generator().manual_seed(3))
+    log = _launch_log(ro)
+    eval_ms = (time.time() - t2) * 1e3
+    launches_eval = ro.rollout.launches - launches_fit
+    prof, wall = profile_window(lambda: mdt.run(state, 10))
+    out = {"card": card, "datasets": list(DATASETS), "lengths": lens,
+           "n_pad": max(lens), "M": 512, "case": "C4", "precision": "fp32",
+           "warmup_iterations": 200, "warmup_seconds": warm_s,
+           "timed_iterations": 200, "timed_seconds": dt,
+           "ms_per_6model_iter": dt / 200 * 1e3,
+           "aggregate_it_per_s": 6 * 200 / dt,
+           "nll_first": warm[0].tolist(), "nll_last": timed_nll[-1].tolist(),
+           "profiled_10_iterations": {**summarize(prof, wall, 10),
+                                      "ms_per_iter": wall / 1e4},
+           "evaluate_ms": eval_ms, "results": res,
+           "rollout_launches_fit": launches_fit,
+           "rollout_launches_evaluate": launches_eval, "launches": log}
+    emit("six_datasets_m512", **out)
+    check(bool(torch.isfinite(warm).all() and torch.isfinite(timed_nll).all()),
+          "six datasets: non-finite nll")
+    check(all(float(a) > float(b) for a, b in zip(warm[0], timed_nll[-1])),
+          f"six datasets: an nll did not decrease {out['nll_first']} -> "
+          f"{out['nll_last']}")
+    check(launches_fit == 0 and launches_eval == 6
+          and all(not e["plan"]["resident"] for e in log),
+          f"six datasets: launches {launches_fit}/{launches_eval} {log}")
+    check(all(math.isfinite(r["rmse"]) and math.isfinite(r["nll"])
+              for r in res.values()), f"six datasets: {res}")
+    return launches_fit + launches_eval
+
+
+def phase_fp64_batched(torch):
+    """Phase 5f: the chain axis in fp64, cuda against CPU: 3 chains of
+    ballbeam C4 for 20 iterations, and 2 chains of C5 for 3 iterations with
+    the same injected draws, traces and leaves within rtol 1e-8; then a
+    checkpoint resume on the card: C5 fp32 with the CUDA generator, saved
+    at 10 iterations and resumed to 20, bit-equal to the uninterrupted
+    run."""
+    import tempfile
+
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.data import create_dataset, load_warmstart
+    from ffvd_tpu_torch.inference.trainer import SUBSTEP_FLAGS, Trainer
+    from ffvd_tpu_torch.model.params import (LEAF_PATHS, SSMData,
+                                             init_params_from_warmstart)
+    from ffvd_tpu_torch.parallel import MultiChainTrainer
+    from ffvd_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                 run_with_checkpoints)
+    t0 = time.time()
+    ds = create_dataset("ballbeam")
+    ws = load_warmstart("ballbeam")
+    g = torch.Generator().manual_seed(56)
+    p_cpu = init_params_from_warmstart(ws)
+    normals = {k: torch.randn((3,) + tuple(v.shape), generator=g,
+                              dtype=torch.float64)
+               for k, v in p_cpu.leaves().items()}
+    out = {}
+    for case, chains, iters in ((4, 3, 20), (5, 2, 3)):
+        cfg = FFVDConfig(dataset="ballbeam", case=case)
+        runs, draws = {}, None
+        for dev in ("cpu", "cuda"):
+            as_t = lambda a: torch.as_tensor(a, dtype=torch.float64,
+                                             device=dev)
+            mct = MultiChainTrainer(cfg, SSMData(y=as_t(ds.y_train),
+                                                 control=as_t(ds.control)),
+                                    chains)
+            state = mct.init_state(mct.stack_params(
+                init_params_from_warmstart(ws, device=dev),
+                normals={k: v[:chains] for k, v in normals.items()}))
+            if mct.has_sghmc and draws is None:
+                sub = mct.subset.split(state.params)
+                draws = [{"noise": {k: torch.randn(
+                    (chains, len(SUBSTEP_FLAGS)) + tuple(v.shape[1:]),
+                    generator=g, dtype=torch.float64)
+                    for k, v in sub.items()},
+                    "feed": torch.randint(0, i + 1, (chains,),
+                                          generator=g).tolist()}
+                    for i in range(iters)]
+            t1 = time.time()
+            state, trace = mct.run(state, iters, draws=None if draws is None
+                                   else [{"noise": {k: v.to(dev) for k, v in
+                                                    d["noise"].items()},
+                                          "feed": d["feed"]} for d in draws])
+            runs[dev] = (trace.cpu(), {k: v.detach().cpu() for k, v in
+                                       state.params.leaves().items()},
+                         time.time() - t1)
+        rel = float(((runs["cuda"][0] - runs["cpu"][0]).abs()
+                     / runs["cpu"][0].abs()).max())
+        leaf_ok = all(torch.allclose(runs["cuda"][1][k], runs["cpu"][1][k],
+                                     rtol=1e-8, atol=1e-12)
+                      for k in LEAF_PATHS)
+        out[f"C{case}"] = {"chains": chains, "iterations": iters,
+                           "max_rel_diff": rel,
+                           "leaves_within_rtol_1e_8": leaf_ok,
+                           "seconds_cuda": runs["cuda"][2],
+                           "seconds_cpu": runs["cpu"][2]}
+        check(torch.allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-8,
+                             atol=0) and leaf_ok,
+              f"fp64 C{case} chains cuda vs cpu differ: {out[f'C{case}']}")
+
+    # checkpoint resume on the card, fp32 C5, the CUDA generator restored
+    cfg = FFVDConfig(dataset="ballbeam", case=5)
+    _, data, p0 = _cuda_data(torch, "ballbeam", torch.float32)
+    tr = Trainer(cfg, data)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(5)
+    full, trace = tr.run(tr.init_state(p0), 20, generator=gen())
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        g1 = gen()
+        _, first = run_with_checkpoints(tr, tr.init_state(p0), 10, mgr,
+                                        every=10, generator=g1)
+        g2 = torch.Generator(device="cuda").manual_seed(999)
+        resumed = mgr.restore(tr.init_state(p0), generator=g2)
+        resumed, rest = run_with_checkpoints(tr, resumed, 20, mgr, every=10,
+                                             generator=g2)
+    same_trace = torch.equal(torch.cat([first, rest]), trace)
+    same_leaves = all(torch.equal(v, full.params.leaves()[k])
+                      for k, v in resumed.params.leaves().items())
+    out["checkpoint_resume_C5_fp32"] = {
+        "saved_at": 10, "resumed_to": 20, "trace_bit_equal": same_trace,
+        "leaves_bit_equal": same_leaves}
+    emit("fp64_batched", **out, seconds=time.time() - t0)
+    check(same_trace and same_leaves,
+          f"checkpoint resume on the card differs: {out}")
+
+
 def phase_fp64_segment(torch):
     """Phase 5e: the float64 collapsed segment, cuda against CPU.
     ``ds_collapsed_terms`` at the ballbeam warm start with fp32 leaves:
@@ -1349,7 +1651,8 @@ def _breakdown(torch, ro, inp):
 def phase_timing(torch, ro):
     """Phase 6: kernel and plain-version times at the main shapes, the
     kernel's time at S=64 beside them (64 clusters queue past 132 SMs), and
-    the launch plan."""
+    the launch plan; then, fp32, 80 per-sample rows (M=100) and S=10 at
+    M=512 on the global-memory plan."""
     out = {}
     gen = torch.Generator().manual_seed(7)
     for name, dtype in (("fp32", torch.float32), ("fp64", torch.float64)):
@@ -1396,6 +1699,38 @@ def phase_timing(torch, ro):
                                     "plain_calls_timed": 3,
                                     "plan": ps_plan._asdict()},
                      "plan": plan._asdict()}
+    # The batched paths' launch shapes, fp32: 80 per-sample rows at M=100
+    # (multichain_moments of 8 chains, phase 4i) and S=10 at M=512 on the
+    # global-memory plan (the six-dataset evaluate(), phase 4j).
+    launches = ro.rollout.launches
+    inp = main_shape_inputs(torch, torch.float32)
+    per80 = per_sample_inputs(torch, inp, 80)
+    s80_ms = _time_ms(torch, lambda: call_batched(
+        ro.rollout_batched, per80, generator=gen), 50)
+    s80_plan = ro.rollout.last_plan
+    s80_plain = _time_ms(torch, lambda: call_batched(
+        ro.rollout_reference_batched, per80, generator=gen), 2)
+    big = random_inputs(torch, torch.float32, 4, 512, T)
+    m512_ms = _time_ms(torch, lambda: call(ro.rollout, big, generator=gen),
+                       20)
+    m512_plan = ro.rollout.last_plan
+    m512_plain = _time_ms(torch, lambda: call(ro.rollout_reference, big,
+                                              generator=gen), 2)
+    ro.rollout.launches = launches
+    b80 = _bound("fp32", 80, T, 4, 100, 5, 1, 4, with_noise_input=False,
+                 per_sample=True)
+    b512 = _bound("fp32", S, T, 4, 512, 5, 1, 4, with_noise_input=False)
+    out["fp32_s80_per_sample"] = {
+        "S": 80, "T": T, "M": 100, "ms": s80_ms, "plain_ms": s80_plain,
+        "bound_ms": b80[0], "bound_by": b80[1], "flops": b80[2],
+        "bytes": b80[3], "kernel_launches_timed": 50, "plain_calls_timed": 2,
+        "plan": s80_plan._asdict()}
+    out["fp32_m512_global"] = {
+        "S": S, "T": T, "M": 512, "ms": m512_ms, "plain_ms": m512_plain,
+        "bound_ms": b512[0], "bound_by": b512[1], "flops": b512[2],
+        "bytes": b512[3], "kernel_launches_timed": 20,
+        "plain_calls_timed": 2, "plan": m512_plan._asdict()}
+    check(not m512_plan.resident, f"M=512 fp32 plan: {m512_plan}")
     emit("timing", shapes={"S": S, "T": T, "D": 4, "M": 100, "Din": 5},
          noise="in-kernel Philox", library="no single PyTorch call computes "
          "this rollout; library_ms is null", **out)
@@ -1449,11 +1784,15 @@ def main() -> int:
     hybrid = timed("hybrid_path", phase_hybrid_path, torch, ro, card,
                    REPORT["main_path"])
     ensemble = timed("ensemble_path", phase_ensemble_path, torch, ro, card)
+    multichain = timed("multichain_path", phase_multichain_path, torch, ro,
+                       card, REPORT["main_path"])
+    six = timed("six_datasets_m512", phase_six_datasets, torch, ro, card)
     timed("fp64_train", phase_fp64_train, torch)
     timed("fp64_sampler", phase_fp64_sampler, torch)
     timed("fp64_pg", phase_fp64_pg, torch)
     timed("fp64_deep", phase_fp64_deep, torch)
     timed("fp64_segment", phase_fp64_segment, torch)
+    timed("fp64_batched", phase_fp64_batched, torch)
     timing = timed("timing", phase_timing, torch, ro)
     emit("phase_seconds", **seconds, total=time.time() - t0)
 
@@ -1472,13 +1811,21 @@ def main() -> int:
             **{k: v["rollout_launches_fit"] + v["rollout_launches_evaluate"]
                for k, v in {**sampler, "C6": pg_path, "deep_C4": deep,
                             "window_C4": window, "hybrid_C4": hybrid,
-                            "ensemble_C4x2": ensemble}.items()}},
+                            "ensemble_C4x2": ensemble}.items()},
+            "multichain_C4x8": multichain["C4x8"],
+            "multichain_C5x4": multichain["C5x4"],
+            "six_datasets_m512": six},
+        "fp32_s80_per_sample": {k: timing["fp32_s80_per_sample"][k] for k in
+                                ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "fp32_m512_global": {k: timing["fp32_m512_global"][k] for k in
+                             ("ms", "plain_ms", "bound_ms", "bound_by")},
         "fp64": {"ms": f64["ms"], "plain_ms": f64["plain_ms"],
                  "bound_ms": f64["bound_ms"], "bound_by": f64["bound_by"],
                  "max_abs_err": worst["fp64"], "plan": f64["plan"]},
         "per_sample": {
             "launches": sum(v["rollout_launches_evaluate"]
-                            for v in sampler.values()),
+                            for v in sampler.values())
+            + multichain["C4x8"] + multichain["C5x4"],
             "max_abs_err": ps_worst["fp32"], "ms": ps32["ms"],
             "plain_ms": ps32["plain_ms"], "bound_ms": ps32["bound_ms"],
             "bound_by": ps32["bound_by"], "library_ms": None,

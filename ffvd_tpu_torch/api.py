@@ -65,7 +65,8 @@ class FFVDModel:
         """``dataset``/``params`` may be injected (e.g. synthetic data from
         ``data.synthetic`` and a cold start from ``init_params_random``); by
         default the named dataset and its Factnonlin warm start load.  A
-        shallow start is adapted to ``cfg.x_dim``, then, for
+        shallow start is adapted to ``cfg.x_dim``, its inducing set resized
+        to ``cfg.num_inducing``, then, for
         ``cfg.n_layers > 1``, given near-identity hidden layers drawn from
         the host generator."""
         self.cfg = cfg
@@ -87,11 +88,8 @@ class FFVDModel:
                 params, cfg.x_dim,
                 control_dim=self.dataset.control.shape[1], seed=cfg.seed)
         if cfg.num_inducing != params.z.shape[0]:
-            raise NotImplementedError(
-                f"num_inducing={cfg.num_inducing} differs from the warm "
-                f"start's {params.z.shape[0]}; resizing the inducing set is "
-                "not ported yet (ROADMAP Queue 1, item 11: "
-                "parallel/multidataset.py::_resize_inducing)")
+            from ffvd_tpu_torch.parallel.multidataset import _resize_inducing
+            params = _resize_inducing(params, cfg.num_inducing, cfg.seed)
         # Host generator: rollout noise seeds (and the hidden layers' start)
         # are drawn from it.  Training generator, on the device: SG-HMC
         # noise, window feeds and starts, inter-layer normals, the PG
@@ -150,16 +148,18 @@ class FFVDModel:
             eval_samples: int = 3,
             tensorboard_dir: Optional[str] = None) -> "FFVDModel":
         """Train; with ``eval_every`` also record (iteration, RMSE, NLL)
-        into ``self.rmse_seq``.
+        into ``self.rmse_seq``.  ``tensorboard_dir``: write the reference's
+        gated-off summary set (models.py:94-131) after every chunk
+        (``utils.metrics.TensorBoardSink``).
 
         Under the hybrid schedule the last ``cfg.hybrid_tail_iters``
         iterations OF THIS CALL run the ds64 bound, and no chunk crosses
         that boundary (per-call semantics, as ``ffvd_tpu/api.py::fit``)."""
-        if tensorboard_dir is not None:
-            raise NotImplementedError(
-                "TensorBoard summaries are not ported yet (ROADMAP Queue 1, "
-                "item 10: utils/metrics.py)")
         n = num_iterations or self.cfg.total_iterations
+        tb = None
+        if tensorboard_dir is not None:
+            from ffvd_tpu_torch.utils.metrics import TensorBoardSink
+            tb = TensorBoardSink(tensorboard_dir)
         tail = min(self.cfg.hybrid_tail_iters, n) if self.hybrid else 0
         done = 0
         step = min(chunk_size, eval_every or n)
@@ -175,10 +175,14 @@ class FFVDModel:
                 generator=self.train_generator)
             self.nll_trace = torch.cat([self.nll_trace, nlls])
             done += m
+            if tb is not None:
+                tb.write(self.state.params, float(nlls[-1]), self.state.step)
             if eval_every and (done % eval_every == 0 or done == n):
                 res = self.evaluate_quick(eval_samples)
                 self.rmse_seq.append((self.state.step, res["rmse"],
                                       res["nll"]))
+        if tb is not None:
+            tb.close()
         return self
 
     def _y_test(self, test_len: Optional[int] = None) -> torch.Tensor:

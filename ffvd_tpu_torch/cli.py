@@ -111,8 +111,6 @@ def _log_clip_kwargs(value, lower=None):
 def _not_ported(args):
     """The flags whose paths are not ported yet, with their ROADMAP item."""
     out = []
-    if args.tensorboard_dir is not None:
-        out.append("--tensorboard_dir (Queue 1, item 10: utils/metrics.py)")
     if args.prng_impl != "threefry2x32":
         out.append("--prng_impl rbg (a JAX PRNG; not applicable)")
     return out
@@ -174,7 +172,8 @@ def main(argv=None):
     model = FFVDModel(cfg, device=device, dtype=dtype)
 
     t0 = time.time()
-    model.fit(chunk_size=args.chunk_size)
+    model.fit(chunk_size=args.chunk_size,
+              tensorboard_dir=args.tensorboard_dir)
     nlls = model.nll_trace
     nll_first, nll_last = float(nlls[0]), float(nlls[-1])   # synchronises
     train_time = time.time() - t0

@@ -8,6 +8,8 @@ trained chains as an equal-weight mixture, with the mixture's total
 variance (within-chain variance + the spread of predictive means), gives
 calibrated free-run uncertainty.  Chains train one after another on the
 model's device; pooling is on the host in float64 numpy (T×P arrays).
+``multichain_moments`` takes the chains of one ``MultiChainTrainer``
+instead, trained together, and rolls all of them out in one launch.
 """
 
 from __future__ import annotations
@@ -94,6 +96,88 @@ def ensemble_evaluate(models: List, horizon: int = 30,
         per.append({"rmse": r, "nll": n})
     return {"rmse": rmse, "nll": nll, "nll_no_spread": nll_ns,
             "predict_y": py, "predict_y_var": pv, "per_chain": per}
+
+
+@torch.no_grad()
+def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
+                       spacing: Optional[int] = None,
+                       generator: Optional[torch.Generator] = None,
+                       thin_generator: Optional[torch.Generator] = None,
+                       noise: Optional[torch.Tensor] = None,
+                       thin_noise=None):
+    """Chain moments of a chain-stacked ``parallel.MultiChainTrainer``
+    state (``ffvd_tpu/eval/ensemble.py:105-148``).  Returns (one
+    ``chain_moments``-shaped tuple per chain, for ``pool_moments``; the
+    stacked state after thinning).
+
+    A sampler case thins every chain at once on the batched gradient
+    (``eval.rollout.thin_posterior``; normals from ``thin_generator``, or
+    ``thin_noise`` path → (C, S, spacing, ...)).  The C×S rollouts are then
+    one ``rollout_batched`` launch: chain c's sample s is row c·S+s, and an
+    iid chain's inputs are repeated over its S rows.  LinearK and deep
+    chains roll out by ``recursion_rollout``.  ``noise`` (C, S, T, D)
+    replaces the head's rollout noise drawn from ``generator`` (a deep
+    model's inter-layer noise is drawn from it too).
+
+    The emission moments use each chain's params after thinning, as JAX's
+    do: the rollouts came from the moved chain."""
+    from ffvd_tpu_torch.eval.rollout import (posterior_inputs,
+                                             recursion_rollout,
+                                             rollout_controls, thin_posterior)
+    from ffvd_tpu_torch.model.deep import hidden_normals
+    from ffvd_tpu_torch.ops import rollout as rollout_ops
+    from ffvd_tpu_torch.ops.kernels import KernelParams
+    from ffvd_tpu_torch.parallel.sharding import member
+
+    cfg, c = mct.cfg, mct.n
+    num = num or cfg.num_posterior_samples
+    spacing = spacing or cfg.posterior_sample_spacing
+    controls = rollout_controls(mct.data, test_len)
+    x = state.params.x
+    d = x.shape[-1]
+    if mct.has_sghmc:
+        samples, state = thin_posterior(mct, state, num, spacing,
+                                        thin_generator, thin_noise)
+        rows = [member(samples[s], i) for i in range(c) for s in range(num)]
+    else:
+        rows = [member(state.params, i) for i in range(c)]
+    if cfg.kernel_type != "SquaredExponential" or cfg.n_layers > 1:
+        n_hidden = len(state.params.hidden)
+        if noise is None:
+            noise = hidden_normals(1, (c, num, test_len), d, generator,
+                                   x.dtype, x.device)[0]
+        hidden_noise = hidden_normals(n_hidden, (c * num, test_len), d,
+                                      generator, x.dtype, x.device)
+        noise = noise.reshape(c * num, test_len, d)
+        per = num if len(rows) == c else 1        # rows sharing params
+        rolls = [recursion_rollout(
+            mct, p, controls, noise[r * per:(r + 1) * per],
+            [e[r * per:(r + 1) * per] for e in hidden_noise])
+            for r, p in enumerate(rows)]
+        xs = torch.cat([r[0] for r in rolls])
+        vs = torch.cat([r[1] for r in rolls])
+    else:
+        inp = posterior_inputs(mct, rows)
+        if len(rows) == c:                        # iid: S rows a chain
+            rep = lambda t: (None if t is None
+                             else t.repeat_interleave(num, dim=0))
+            kp = inp.pop("kparams")
+            inp = {k: rep(v) for k, v in inp.items()}
+            inp["kparams"] = KernelParams(rep(kp.log_variance),
+                                          rep(kp.log_lengthscales))
+        xs, vs = rollout_ops.rollout_batched(
+            controls=controls, generator=generator,
+            noise=None if noise is None
+            else noise.reshape(c * num, test_len, d), **inp)
+    xs = xs.reshape(c, num, test_len, d)
+    vs = vs.reshape(c, num, test_len, d)
+    full_r = use_full_r(cfg.emission_noise, state.params.c.shape[-1])
+    chains = []
+    for i in range(c):
+        p = member(state.params, i)
+        chains.append((_f64(xs[i] @ p.c + p.d), _f64(vs[i] @ (p.c * p.c)),
+                       _f64(p.r_var_diag if full_r else p.rchol_diag ** 2)))
+    return chains, state
 
 
 def fit_ensemble(cfg, n_chains: int, device=None, dtype=None,

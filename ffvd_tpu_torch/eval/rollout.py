@@ -118,23 +118,28 @@ def thin_posterior(trainer: Trainer, state: TrainState, num: int,
     ``thin_noise`` (path → (num, spacing, ...)) and ``thin_prop`` (one
     (num, spacing, N, D) tensor per hidden layer) replace the normals drawn
     from ``generator``.  Returns (the ``num`` thinned params, the state
-    with the moved chain)."""
+    with the moved chain).  A ``parallel.BatchedTrainer`` thins every
+    member at once on the batched gradient; its state, samples and
+    injected normals carry the member axis first."""
     subset = trainer.subset
     params = state.params
     sub = {k: v.detach() for k, v in subset.split(params).items()}
     sstate = state.sghmc
     n_hidden = len(params.hidden)
+    lead = trainer.lead
+    pick = lambda v, i, j: v[(slice(None),) * len(lead) + (i, j)]
     samples = []
     for i in range(num):
         for j in range(spacing):
             nz = (None if thin_noise is None
-                  else {k: v[i, j] for k, v in thin_noise.items()})
+                  else {k: pick(v, i, j) for k, v in thin_noise.items()})
             eps = None
             if trainer.stochastic:
-                eps = ([p[i, j] for p in thin_prop] if thin_prop is not None
-                       else hidden_normals(
-                           n_hidden, (params.n_transitions,), params.x_dim,
-                           generator, params.x.dtype, params.x.device))
+                eps = ([pick(p, i, j) for p in thin_prop]
+                       if thin_prop is not None else hidden_normals(
+                           n_hidden, lead + (params.x.shape[-2] - 1,),
+                           params.x.shape[-1], generator, params.x.dtype,
+                           params.x.device))
             sub, sstate = trainer.sghmc_move(sub, sstate, params, False, nz,
                                              generator, eps=eps)
         samples.append(subset.merge(sub, params))

@@ -83,7 +83,11 @@ def label_tree(cfg: FFVDConfig) -> Dict[str, str]:
 
 def grads_of(nll: torch.Tensor, leaves) -> list:
     """d nll / d leaf for each leaf, zeros for a leaf the objective does not
-    use (the LinearK lengthscales), as ``jax.grad`` returns them."""
+    use (the LinearK lengthscales), as ``jax.grad`` returns them.  A (C,)
+    ``nll`` of independent members is summed: each member's leaves get
+    its own gradient."""
+    if nll.dim():
+        nll = nll.sum()
     grads = torch.autograd.grad(nll, leaves, allow_unused=True)
     return [torch.zeros_like(v) if g is None else g
             for v, g in zip(leaves, grads)]
@@ -149,7 +153,13 @@ class TrainState:
 
 
 class Trainer:
-    """Runs the FFVD training protocol for one config."""
+    """Runs the FFVD training protocol for one config.
+
+    ``lead`` is the shape of a leading member axis that every leaf, draw
+    and nll carries: () here, (C,) in ``parallel.sharding.BatchedTrainer``,
+    which overrides the objective and the few hooks that index members."""
+
+    lead: Tuple[int, ...] = ()
 
     def __init__(self, cfg: FFVDConfig, data: SSMData,
                  pg_fn: Optional[Callable] = None):
@@ -218,10 +228,12 @@ class Trainer:
         params = GPSSMParams.from_leaves(leaves)
         sub = self.subset.split(params)
         w = self.cfg.window_size
+        m = len(self.lead)
         return TrainState(
             params=params, adam=adam,
             sghmc=sghmc_init(sub) if self.has_sghmc else None,
-            window={k: v.new_zeros((w,) + tuple(v.shape))
+            window={k: v.new_zeros(tuple(v.shape[:m]) + (w,)
+                                   + tuple(v.shape[m:]))
                     for k, v in sub.items()})
 
     def chain_from_numpy(self, state: TrainState, sghmc: Dict[str, Dict],
@@ -275,21 +287,26 @@ class Trainer:
                              "prop=)")
         dev = x.device
         if self.window_n is not None:
-            out["starts"] = torch.randint(
-                0, self.start_hi, (n_evals,), generator=generator,
-                device=generator.device).to(dev)
+            out["starts"] = self._draw_starts(n_evals, generator, dev)
         if self.stochastic:
-            rows = self.window_n or self.data.y.shape[0]
+            rows = self.window_n or self.data.y.shape[-2]
             out["prop"] = hidden_normals(
-                self.cfg.n_layers - 1, (n_evals, rows), x.shape[1],
-                generator, x.dtype, dev)
+                self.cfg.n_layers - 1, self.lead + (n_evals, rows),
+                x.shape[-1], generator, x.dtype, dev)
         return out
 
-    @staticmethod
-    def _eval_draws(starts, prop, e: int):
+    def _draw_starts(self, n_evals: int, generator: torch.Generator,
+                     dev) -> torch.Tensor:
+        """(n_evals,) window starts, uniform on [0, start_hi)."""
+        return torch.randint(0, self.start_hi, (n_evals,),
+                             generator=generator,
+                             device=generator.device).to(dev)
+
+    def _eval_draws(self, starts, prop, e: int):
         """(start, eps) of gradient evaluation ``e`` of an iteration."""
-        return (None if starts is None else starts[e:e + 1],
-                None if prop is None else [p[e] for p in prop])
+        return (None if starts is None else starts[..., e:e + 1],
+                None if prop is None
+                else [p.select(len(self.lead), e) for p in prop])
 
     # -- the SG-HMC leaves' gradient and chain ------------------------------
 
@@ -322,7 +339,7 @@ class Trainer:
         grads = self.subset_grads(sub, params, start=start, eps=eps)
         sub, sstate = sghmc_step(
             sub, grads, sstate, epsilon=cfg.epsilon, mdecay=cfg.mdecay,
-            x_n=params.x.shape[0], burn_in=burn_in, p_clip=cfg.sghmc_p_clip,
+            x_n=params.x.shape[-2], burn_in=burn_in, p_clip=cfg.sghmc_p_clip,
             spike_clip=cfg.sghmc_spike_clip, noise=noise, generator=generator)
         return clip_log_leaves(sub, cfg.log_clip_bounds), sstate
 
@@ -333,31 +350,44 @@ class Trainer:
         SG-HMC leaves only, sub-step i on window ``starts[i]`` with
         inter-layer normals ``prop[·][i]`` (trainer.py:329-393)."""
         sub = {k: v.detach() for k, v in self.subset.split(params).items()}
+        m = len(self.lead)
         for i, flag in enumerate(SUBSTEP_FLAGS):
             start, eps = self._eval_draws(starts, prop, i)
-            sub, sstate = self.sghmc_move(sub, sstate, params, flag,
-                                          {k: v[i] for k, v in noise.items()},
-                                          start=start, eps=eps)
+            sub, sstate = self.sghmc_move(
+                sub, sstate, params, flag,
+                {k: v.select(m, i) for k, v in noise.items()},
+                start=start, eps=eps)
         return self.subset.merge(sub, params), sstate
 
     # -- one outer iteration ----------------------------------------------
 
     def _feed_params(self, state: TrainState, generator, feed) -> GPSSMParams:
         """The params with the SG-HMC leaves replaced by window slot i,
-        i ~ U[0, max(count, 1)) drawn after the snapshot (trainer.py:424)."""
+        i ~ U[0, max(count, 1)) drawn after the snapshot (trainer.py:424),
+        one slot per member."""
         dev = state.params.x.device
+        shape = self.lead or (1,)
         if feed is None:
             if generator is None:
                 raise ValueError("the window feed needs a torch.Generator or "
                                  "an injected index (feed=)")
-            i = torch.randint(0, max(state.window_count, 1), (1,),
+            i = torch.randint(0, max(state.window_count, 1), shape,
                               generator=generator,
                               device=generator.device).to(dev)
         else:
-            i = torch.as_tensor([int(feed)], device=dev)
+            i = torch.as_tensor(np.asarray(feed, dtype=np.int64)
+                                .reshape(shape), device=dev)
         return self.subset.merge(
-            {k: torch.index_select(w, 0, i)[0]
-             for k, w in state.window.items()}, state.params)
+            {k: self._window_slot(w, i) for k, w in state.window.items()},
+            state.params)
+
+    def _window_slot(self, w: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+        """Slot ``i`` (1,) of one leaf's window (window_size, ...)."""
+        return torch.index_select(w, 0, i)[0]
+
+    def _pg(self, params: GPSSMParams, generator, pg) -> GPSSMParams:
+        """C6: the particle-Gibbs sweep of the trajectory."""
+        return self.pg_fn(params, generator, self.data, draws=pg)
 
     def outer_step(self, state: TrainState,
                    generator: Optional[torch.Generator] = None,
@@ -367,7 +397,7 @@ class Trainer:
                    starts: Optional[torch.Tensor] = None,
                    prop: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         """One outer iteration, updating ``state`` in place.  Returns the
-        nll, detached: at the window-fed point before the Adam update, on
+        nll, detached ((C,) with a member axis): at the window-fed point before the Adam update, on
         that gradient's window and inter-layer draw (trainer.py:430), or
         full batch and mean-propagated after the sampler phase when there
         is no Adam leaf (C7, :434).  ``noise`` (path → (21, ...)), ``feed``,
@@ -382,14 +412,16 @@ class Trainer:
             or (self.stochastic and prop is None)) else {}
         starts = drawn.get("starts") if starts is None else starts
         prop = drawn.get("prop") if prop is None else prop
+        m = len(self.lead)
         if self.has_sghmc:
             if noise is None:   # the 21 sub-steps' normals, drawn up front
-                noise = tree_normals(self.subset.split(state.params),
-                                     generator, (len(SUBSTEP_FLAGS),))
+                noise = {k: v.movedim(0, m) for k, v in tree_normals(
+                    self.subset.split(state.params), generator,
+                    (len(SUBSTEP_FLAGS),)).items()}
             state.params, state.sghmc = self._sghmc_phase(
                 state.params, state.sghmc, noise, starts, prop)
             # Window snapshot as a ring buffer (base_model.py:927-933).
-            slot = state.step % self.cfg.window_size
+            slot = (slice(None),) * m + (state.step % self.cfg.window_size,)
             sub = self.subset.split(state.params)
             with torch.no_grad():
                 for k, w in state.window.items():
@@ -397,8 +429,7 @@ class Trainer:
             state.window_count = min(state.window_count + 1,
                                      self.cfg.window_size)
         if self.pg_fn is not None and self.cfg.case_config.x_pg:
-            state.params = self.pg_fn(state.params, generator, self.data,
-                                      draws=pg)
+            state.params = self._pg(state.params, generator, pg)
         if self.has_adam:
             feed_params = (self._feed_params(state, generator, feed)
                            if self.has_sghmc else state.params)
@@ -413,7 +444,7 @@ class Trainer:
             state.adam.step()
         else:
             with torch.no_grad():
-                nll = self.nll_fn(state.params, self.data)
+                nll = self.train_nll(state.params)
         state.step += 1
         return nll.detach()
 
@@ -441,16 +472,23 @@ class Trainer:
                                 **(next(draws) if draws is not None else {}))
                 for _ in range(n)])
             if nan_check and not bool(torch.isfinite(nlls).all()):
-                bad = int(torch.nonzero(~torch.isfinite(nlls))[0, 0])
-                diag = {k: bool(torch.isfinite(v).all())
-                        for k, v in state.params.leaves().items()}
-                raise FloatingPointError(
-                    f"non-finite nll at iteration {done + bad}; "
-                    f"finite-by-block: {diag}. For ill-conditioned fp32 "
-                    f"runs try fp64 or a larger jitter (cfg.jitter).")
+                self._raise_non_finite(nlls, done, state)
             traces.append(nlls)
             done += n
         if not traces:
-            return state, torch.zeros((0,), dtype=state.params.x.dtype,
+            return state, torch.zeros((0,) + self.lead,
+                                      dtype=state.params.x.dtype,
                                       device=state.params.x.device)
         return state, torch.cat(traces)
+
+    def _raise_non_finite(self, nlls: torch.Tensor, done: int,
+                          state: TrainState):
+        """Name the first non-finite iteration of a chunk's trace and which
+        parameter blocks are still finite."""
+        bad = int(torch.nonzero(~torch.isfinite(nlls))[0, 0])
+        diag = {k: bool(torch.isfinite(v).all())
+                for k, v in state.params.leaves().items()}
+        raise FloatingPointError(
+            f"non-finite nll at iteration {done + bad}; "
+            f"finite-by-block: {diag}. For ill-conditioned fp32 "
+            f"runs try fp64 or a larger jitter (cfg.jitter).")

@@ -5,7 +5,10 @@ a non-PD block where JAX's returns NaN, so the factorisation here is
 ``torch.linalg.cholesky_ex``: a batch element is "bad" when its ``info`` is
 non-zero or its factor is non-finite, and only then is it refactorised with
 an escalated jitter.  Checking for a bad element reads one flag back to the
-host; the healthy path pays one factorisation.
+host; the healthy path pays one factorisation.  Under ``torch.func.vmap``
+(the chain and dataset axes, ``parallel/``) both factorisations carry a
+``vmap`` rule that runs the impl once on the folded batch: one host read
+for all mapped elements, and a retry only where an element failed.
 
 The JAX package's ``blocked_tri_inv`` works around the TPU's sequential
 triangular solve and is never taken at M < 256; here the triangular inverse
@@ -58,16 +61,28 @@ def _tri_inv(l: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(l, eye.expand(l.shape), upper=False)
 
 
+def _mapped_first(mat: torch.Tensor, dim):
+    """(``mat`` with the vmapped dim first, the outputs' mapped dim): one
+    call of the batch-polymorphic impl then covers every mapped element."""
+    return (mat, None) if dim is None else (mat.movedim(dim, 0), 0)
+
+
 class _PSDCholesky(torch.autograd.Function):
     """Forward: jitter-escalating factorisation.  Backward: the standard
     Cholesky pullback Σ̄ = L⁻ᵀ Φ(Lᵀ L̄) L⁻¹ from the saved factor, so no NaN
-    of a failed first attempt can reach a gradient."""
+    of a failed first attempt can reach a gradient.  Under
+    ``torch.func.vmap`` the rule ``vmap`` folds the mapped dim into the
+    batch and factorises once, so the retry check stays one host read for
+    every mapped element (``ffvd_tpu/ops/chol.py::_psd_cholesky_batchsafe``
+    keeps it behind a real branch in the same way)."""
 
     @staticmethod
-    def forward(ctx, mat, retry_jitter):
-        l = _psd_cholesky_impl(mat, retry_jitter)
-        ctx.save_for_backward(l)
-        return l
+    def forward(mat, retry_jitter):
+        return _psd_cholesky_impl(mat, retry_jitter)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, lbar):
@@ -78,6 +93,11 @@ class _PSDCholesky(torch.autograd.Function):
         sigma_bar = torch.linalg.solve_triangular(
             lt, tmp.mT, upper=True).mT                                 # ·L⁻¹
         return 0.5 * (sigma_bar + sigma_bar.mT), None
+
+    @staticmethod
+    def vmap(info, in_dims, mat, retry_jitter):
+        mat, out = _mapped_first(mat, in_dims[0])
+        return _PSDCholesky.apply(mat, retry_jitter), out
 
 
 def psd_cholesky(mat: torch.Tensor, retry_jitter: float = 1e-4) -> torch.Tensor:
@@ -93,14 +113,18 @@ class _CholAndInv(torch.autograd.Function):
         Σ̄ = L⁻ᵀ Φ(Lᵀ L̄_eff) L⁻¹      (with the saved explicit L⁻¹)
 
     Φ(LᵀX) reads only tril(X), so upper-triangle cotangent junk is ignored.
+    Under ``torch.func.vmap`` it factorises the folded batch once, as
+    ``_PSDCholesky`` does.
     """
 
     @staticmethod
-    def forward(ctx, mat, retry_jitter):
+    def forward(mat, retry_jitter):
         l = _psd_cholesky_impl(mat, retry_jitter)
-        l_inv = _tri_inv(l)
-        ctx.save_for_backward(l, l_inv)
-        return l, l_inv
+        return l, _tri_inv(l)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*output)
 
     @staticmethod
     def backward(ctx, lbar, linvbar):
@@ -110,6 +134,11 @@ class _CholAndInv(torch.autograd.Function):
         p = _phi(l.mT @ lbar_eff)
         sigma_bar = l_invT @ p @ l_inv
         return 0.5 * (sigma_bar + sigma_bar.mT), None
+
+    @staticmethod
+    def vmap(info, in_dims, mat, retry_jitter):
+        mat, out = _mapped_first(mat, in_dims[0])
+        return _CholAndInv.apply(mat, retry_jitter), (out, out)
 
 
 def chol_and_inv(mat: torch.Tensor, retry_jitter: float = 1e-4):

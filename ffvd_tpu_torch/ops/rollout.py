@@ -28,6 +28,7 @@ the wrapper raises when it cannot be scheduled.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import NamedTuple, Optional, Tuple
 
@@ -376,7 +377,8 @@ def rollout(kparams: KernelParams, z: torch.Tensor, lm_inv: torch.Tensor,
     None; q (D,); x0 (D,); controls (T, U), U may be 0; noise (S, T, D) or
     None.  Returns (xs, var_tot), each (S, T, D), var_tot clamped at 0.
     CUDA tensors launch the kernel (float32 or float64) as ``rollout_plan``
-    says, and record the plan in ``rollout.last_plan``; CPU tensors run
+    says, and record the plan in ``rollout.last_plan`` and (rows, plan) in
+    ``rollout.log``; CPU tensors run
     ``rollout_reference``."""
     if z.device.type == "cpu":
         return rollout_reference(kparams, z, lm_inv, u_val, q_sqrt, q, x0,
@@ -449,11 +451,14 @@ def _launch(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls, s, noise,
                            + _LAUNCH_ERRORS.get(err, f"CUDA error {err}"))
     rollout.launches += 1
     rollout.last_plan = plan
+    rollout.log.append((s, plan))
     return xs, vs
 
 
 rollout.launches = 0
 rollout.last_plan = None
+# (rows, plan) of the latest launches; a caller clears it to watch a path.
+rollout.log = collections.deque(maxlen=64)
 
 
 def ffvd_normals(seed: int, n: int, device="cuda") -> torch.Tensor:

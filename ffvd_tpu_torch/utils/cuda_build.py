@@ -5,6 +5,11 @@ into ``ffvd_tpu_torch/_build/lib<name>-<hash>.so`` at first use and loaded
 with ``ctypes``.  The hash covers the source and the flags, so an edited
 source is rebuilt; the build directory is listed in ``.gitignore``.  Nothing
 happens at import: a machine without ``nvcc`` can import every module.
+
+This is all the port compiles at run time, so the JAX package's
+``utils/compile_cache.py`` (a persistent XLA compilation cache for its
+jitted programs) has no counterpart: eager PyTorch compiles nothing, and
+the hashed ``_build/`` library already persists across processes.
 """
 
 from __future__ import annotations

@@ -99,16 +99,18 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     ({"num_inducing": 50}, "item 11"),
     ({"collapse_precision": "hybrid"}, "item 9")])
 def test_unported_model_options_raise(kw, item):
-    """``num_inducing`` other than the warm start's still raises, naming
-    its ROADMAP item; hybrid precision (item 9) is ported and runs."""
+    """Both options of the once-unported list now run: hybrid precision
+    (item 9) and a ``num_inducing`` other than the warm start's (item 11,
+    the inducing set resized by ``parallel/multidataset.py::
+    _resize_inducing``)."""
     if item == "item 9":
         m = FFVDModel(FFVDConfig(**kw, hybrid_tail_iters=1), device="cpu")
         assert m.hybrid and m.eval_trainer.train_precision == "ds64"
-        res = m.fit(2).evaluate(num_samples=2)
-        assert np.isfinite(res["rmse"]) and np.isfinite(res["nll"])
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        FFVDModel(FFVDConfig(**kw), device="cpu")
+    else:
+        m = FFVDModel(FFVDConfig(**kw), device="cpu")
+        assert m.params.z.shape[0] == kw["num_inducing"]
+    res = m.fit(2).evaluate(num_samples=2)
+    assert np.isfinite(res["rmse"]) and np.isfinite(res["nll"])
 
 
 def test_cli_runs_on_cpu_and_writes_results(tmp_path, capsys):
