@@ -16,7 +16,10 @@ that each print one JSON line:
 2b. the kernel with per-sample inputs (``rollout_batched``, S=10 parameter
    sets perturbed from the warm start) against its plain version, with and
    without q_sqrt, fp64 and fp32, resident and global (fp64, M=320; fp32,
-   M=512), and fp32 at the 80 and 40 rows that phase 4i launches;
+   M=512), and fp32 at the 80 and 40 rows that phase 4i launches; and the
+   Philox ``row_offset``: an offset launch (shared S=10 as 4 + 6,
+   per-sample S=80 as 40 + 40) is bit for bit the rows of the whole launch
+   and equals the plain version with the same offset, fp64 and fp32;
 3. the in-kernel generator: moments of 2²⁰ draws, and the standardised
    step-1 residuals of a 65,536-sample rollout (with the phase's seconds);
 4. the main path in fp32: ``FFVDModel(FFVDConfig("ballbeam", case=4))`` on
@@ -51,7 +54,7 @@ that each print one JSON line:
 5d. 3 fp64 deep C4 iterations with injected inter-layer normals, and the
    deep rollout with injected noise, cuda against CPU;
 4i. the chain axis in fp32: ballbeam C4 as 8 chains of one
-   ``MultiChainTrainer`` for 1000 iterations (aggregate chain-iterations/s
+   ``MultiChainTrainer`` for 500 iterations (aggregate chain-iterations/s
    beside phase 4's single-chain rate, split-R̂ over the tail), its 8×10
    ``multichain_moments`` rollouts in one launch, kernels and host syncs
    of 8 chains against one; C5 as 4 chains for 20 iterations, thinned on
@@ -66,6 +69,14 @@ that each print one JSON line:
 5f. chains in fp64, cuda against CPU: 3 chains of C4 for 20 iterations, 2
    of C5 for 3 with injected draws; a checkpoint resume on the card (C5
    fp32, the CUDA generator restored) bit-equal to the uninterrupted run;
+7. the mesh half of ``parallel/`` across processes (``phase_mesh``): 7a
+   NCCL at world size 1, mesh (1, 1), 8 C4 chains fp32, bit-equal to one
+   process; 7b gloo, 4 ranks sharing the card, dp=2 × ep=2: C4 and C5
+   chains in fp64 against one process, the chains' moments in 2 launches
+   of 40 rows against one of 80, 200 fp32 iterations timed, six datasets ×
+   M=512 and their ``evaluate()``; 7c gloo, 4 ranks, sp=4: kink N=5000 C4
+   in fp64 against one process, fp32 timed; 7d the same on NCCL over 4
+   cards, or ``{"phase": "7d", "ran": false, "cards": n}``;
 6. kernel timing with CUDA events at S=10 and S=64, shared and per-sample
    inputs, with the launch plan; fp32 at 80 per-sample rows and at M=512
    (global plan); and one ``{"kernels": [...]}`` line.
@@ -93,6 +104,8 @@ REPORT = {}
 # Main-path shapes and protocol (ffvd_tpu_torch/config.py defaults).
 S, T, HORIZON = 10, 500, 30
 ANCHOR_NLL = -2.410755          # ballbeam C4 warm-start nll (fp64, golden)
+# Phase 4i's depth, short enough to leave the script's time to later phases.
+CHAIN_ITERATIONS = 500
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; FLOP/s for
 # fp32 outside the tensor cores (TF32 would lose precision), and for fp64
 # on the tensor cores (DMMA runs in full fp64).  ≈88% of the rollout's work
@@ -272,11 +285,67 @@ def phase_per_sample_vs_plain(torch, ro):
                           "ok": ok, "plan": plan._asdict()})
             check(ok and distinct and bool(torch.isfinite(xk).all()),
                   f"per-sample kernel vs plain: {cases[-1]}")
+    offsets = _offset_cases(torch, ro, worst)
     emit("per_sample_vs_plain",
          tolerance={"fp64": "rtol 1e-9, atol 1e-12, all T",
-                    "fp32": "rtol 1e-4, atol 1e-5, first 30 steps"},
-         cases=cases, worst=worst)
+                    "fp32": "rtol 1e-4, atol 1e-5, first 30 steps",
+                    "row_offset": "bit-equal to the whole launch's rows"},
+         cases=cases, row_offset=offsets, worst=worst)
     return worst
+
+
+def _offset_cases(torch, ro, worst):
+    """The Philox ``row_offset``: rows [r0, r1) launched with
+    ``row_offset=r0`` are rows r0..r1 of one launch of all rows, bit for
+    bit, and equal the plain version with the same offset; fp64 and fp32,
+    shared inputs (S=10 as 4 + 6) and per-sample (S=80 as 40 + 40, the
+    launches of ``multichain_moments`` on dp=2)."""
+    cases = []
+    seeded = lambda: torch.Generator().manual_seed(99)
+    for name, dtype in (("fp64", torch.float64), ("fp32", torch.float32)):
+        base = main_shape_inputs(torch, dtype)
+        per = per_sample_inputs(torch, base, 80)
+        cut = lambda r0, r1: {
+            k: (type(v)(v.log_variance[r0:r1], v.log_lengthscales[r0:r1])
+                if k == "kparams" else v if k == "controls" else v[r0:r1])
+            for k, v in per.items()}
+        runs = {
+            "shared": (lambda fn, r0, r1: call(
+                fn, base, num_samples=r1 - r0, generator=seeded(),
+                row_offset=r0), S, [(0, 4), (4, S)]),
+            "per_sample": (lambda fn, r0, r1: call_batched(
+                fn, cut(r0, r1), generator=seeded(), row_offset=r0), 80,
+                [(0, 40), (40, 80)])}
+        for kind, (launch, rows, splits) in runs.items():
+            xw, vw = launch(ro.rollout_batched if kind == "per_sample"
+                            else ro.rollout, 0, rows)
+            for r0, r1 in splits:
+                before = ro.rollout.launches
+                xk, vk = launch(ro.rollout_batched if kind == "per_sample"
+                                else ro.rollout, r0, r1)
+                launched = ro.rollout.launches - before
+                xr, vr = launch(ro.rollout_reference_batched
+                                if kind == "per_sample"
+                                else ro.rollout_reference, r0, r1)
+                torch.cuda.synchronize()
+                equal = (torch.equal(xk, xw[r0:r1])
+                         and torch.equal(vk, vw[r0:r1]))
+                h = xk.shape[1] if name == "fp64" else HORIZON
+                tol = (dict(rtol=1e-9, atol=1e-12) if name == "fp64"
+                       else dict(rtol=1e-4, atol=1e-5))
+                err = max(float((xk[:, :h] - xr[:, :h]).abs().max()),
+                          float((vk[:, :h] - vr[:, :h]).abs().max()))
+                worst[name] = max(worst[name], err)
+                cases.append({"dtype": name, "inputs": kind, "rows": rows,
+                              "launched_rows": [r0, r1],
+                              "bit_equal_to_whole_launch": equal,
+                              "max_abs_err_vs_plain": err,
+                              "launches": launched})
+                check(equal and launched == 1
+                      and torch.allclose(xk[:, :h], xr[:, :h], **tol)
+                      and torch.allclose(vk[:, :h], vr[:, :h], **tol),
+                      f"row_offset launch: {cases[-1]}")
+    return cases
 
 
 def call(fn, inp, q_sqrt=True, **kw):
@@ -1084,7 +1153,7 @@ def _pooled_metrics(chains, ds):
 def phase_multichain_path(torch, ro, card, single):
     """Phase 4i: the chain axis in fp32.  Ballbeam C4 as 8 chains of one
     ``MultiChainTrainer`` (warm start perturbed by 1e-3·N(0,1) per chain)
-    for 1000 iterations, then ``multichain_moments``: all 8×10 rollouts in
+    for 500 iterations, then ``multichain_moments``: all 8×10 rollouts in
     one launch.  Kernels and host syncs of 10 profiled iterations, 8 chains
     against one.  Then C5 as 4 chains for 20 iterations, thinned on the
     batched gradient, and its 4×10 rollouts in one per-sample launch.  The
@@ -1102,7 +1171,7 @@ def phase_multichain_path(torch, ro, card, single):
     state = mct.init_state(mct.stack_params(p0, gen))
     torch.cuda.synchronize()
     t0 = time.time()
-    state, trace = mct.run(state, 1000, generator=gen)
+    state, trace = mct.run(state, CHAIN_ITERATIONS, generator=gen)
     trace = trace.cpu()
     train_s = time.time() - t0
     launches_fit = ro.rollout.launches
@@ -1113,8 +1182,9 @@ def phase_multichain_path(torch, ro, card, single):
     log = _launch_log(ro)
     eval_ms = (time.time() - t1) * 1e3
     launches_eval = ro.rollout.launches - launches_fit
-    c4 = {"chains": 8, "iterations": 1000, "train_seconds": train_s,
-          "chain_it_per_s": 8 * 1000 / train_s,
+    c4 = {"chains": 8, "iterations": CHAIN_ITERATIONS,
+          "train_seconds": train_s,
+          "chain_it_per_s": 8 * CHAIN_ITERATIONS / train_s,
           "single_chain_it_per_s_phase4": single["train_it_per_s"],
           "rhat_tail": mct.rhat(trace), "nll_first": trace[0].tolist(),
           "nll_last": trace[-1].tolist(), "moments_ms": eval_ms,
@@ -1648,6 +1718,248 @@ def _breakdown(torch, ro, inp):
             "s65536_t1_fill_bytes_per_s": fill / (ms["s65536_t1"] * 1e-3)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the mesh half of parallel/ across processes
+# ---------------------------------------------------------------------------
+
+def _chain_spec(name, c, case, dtype, iters, seed=0, **extra):
+    """A ``rank_jobs`` spec: ``name``'s warm start stacked over ``c``
+    chains, each leaf + 1e-3·N(0, 1) a chain (numpy, ``seed``)."""
+    import numpy as np
+
+    from ffvd_tpu_torch.data import create_dataset, load_warmstart
+    from ffvd_tpu_torch.model.params import (init_params_from_warmstart,
+                                             params_to_numpy)
+    ds = create_dataset(name)
+    one = params_to_numpy(init_params_from_warmstart(load_warmstart(name)))
+    rng = np.random.RandomState(seed)
+    leaves = {k: np.stack([v + 1e-3 * rng.randn(*v.shape) for _ in range(c)])
+              for k, v in one.items()}
+    return dict(cfg=dict(dataset=name, case=case), dtype=dtype,
+                leaves=leaves, y=ds.y_train, control=ds.control, iters=iters,
+                seed=seed, **extra)
+
+
+def _kink_spec(dtype, iters, **extra):
+    """Kink N=5000 (phase 4f's data and cold start), C4, full batch."""
+    import torch
+
+    from ffvd_tpu_torch.data import generate_kink
+    from ffvd_tpu_torch.model.params import (init_params_random,
+                                             params_to_numpy)
+    ds = generate_kink(n=5000, seed=0)
+    leaves = params_to_numpy(init_params_random(
+        5000, 4, 100, 0, generator=torch.Generator().manual_seed(0)))
+    return dict(cfg=dict(dataset="kink", case=4), dtype=dtype,
+                leaves=leaves, y=ds.y_train, control=ds.control, iters=iters,
+                seed=0, **extra)
+
+
+def _diff(torch, got, want, rtol, atol):
+    """Over the trace and every state tensor of two job results: (max
+    |got − want| / max |want| of a tensor, all within rtol/atol, all bit
+    equal)."""
+    pairs = [(got["trace"], want["trace"])] + [
+        (got["state"][k], v) for k, v in want["state"].items()]
+    rel, close, equal = 0.0, True, True
+    for g, w in pairs:
+        g, w = g.double(), w.double()
+        rel = max(rel, float((g - w).abs().max()
+                             / w.abs().max().clamp(min=1e-300)))
+        close = close and bool(torch.allclose(g, w, rtol=rtol, atol=atol))
+        equal = equal and bool(torch.equal(g, w))
+    return rel, close, equal and set(got["state"]) == set(want["state"])
+
+
+def _moments_diff(got, want):
+    """max relative difference of the chains' moments and of the pooled
+    mixture moments."""
+    import numpy as np
+
+    from ffvd_tpu_torch.eval.ensemble import pool_moments
+    rel = lambda a, b: float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)),
+                                                         1e-300))
+    chains = max(rel(a, b) for ga, wa in zip(got, want)
+                 for a, b in zip(ga, wa))
+    pooled = max(rel(a, b) for a, b in zip(pool_moments(got),
+                                           pool_moments(want)))
+    return chains, pooled
+
+
+def _mesh_plans():
+    """7b's and 7c's jobs: (name, kind, spec) on dp=2 × ep=2 and sp=4."""
+    from ffvd_tpu_torch.config import DATASETS
+    dpep = dict(mesh=(2, 2))
+    b = [("C4x8_fp64", "chains", _chain_spec(
+             "ballbeam", 8, 4, "float64", 20,
+             moments=dict(test_len=500, seed=1, check_whole=True), **dpep)),
+         ("C5x4_fp64", "chains", _chain_spec("ballbeam", 4, 5, "float64", 3,
+                                             **dpep)),
+         ("C4x8_fp32_timed", "chains", _chain_spec(
+             "ballbeam", 8, 4, "float32", 10, timed=200, **dpep)),
+         ("six_m512", "datasets", dict(
+             cfg=dict(dataset="ballbeam", case=4, num_inducing=512),
+             names=list(DATASETS), m=512, dtype="float32", iters=20,
+             eval_seed=3, **dpep))]
+    sp = dict(mesh=(4,), axis="sp")
+    c = [("kink_fp64", "sequence", _kink_spec("float64", 10, **sp)),
+         ("kink_fp32_timed", "sequence", _kink_spec("float32", 2, timed=20,
+                                                    **sp))]
+    return b, c
+
+
+def _check_dp_ep(torch, ranks, singles, what, on_card=True):
+    """7b's checks on the ranks' results (name → (result, s)) against the
+    one-process runs on the card.  Returns the report."""
+    import math
+    rep = {}
+    for name in ("C4x8_fp64", "C5x4_fp64"):
+        rels = [_diff(torch, r[name][0], singles[name], 1e-10, 1e-12)
+                for r in ranks]
+        rep[name] = {"max_rel_diff_vs_one_process": max(x[0] for x in rels),
+                     "within_rtol_1e-10": all(x[1] for x in rels),
+                     "seconds": [r[name][1] for r in ranks]}
+        check(all(x[1] for x in rels), f"{what} {name}: {rep[name]}")
+    c4 = [r["C4x8_fp64"][0] for r in ranks]
+    rows = [x["launch_rows"] for x in c4]
+    one = _moments_diff(c4[0]["moments"], c4[0]["moments_one_launch"])
+    vs_single = _moments_diff(c4[0]["moments"], singles["C4x8_fp64"]
+                              ["moments"])
+    rep["moments"] = {
+        "launch_rows_by_rank": rows,
+        "launches_by_rank": [x["launches"] for x in c4],
+        "rollout_calls_by_rank": [x["rollout_calls"] for x in c4],
+        "vs_one_80_row_launch_same_state": {"chains": one[0],
+                                            "pooled": one[1]},
+        "vs_one_process_run": {"chains": vs_single[0],
+                               "pooled": vs_single[1]},
+        "one_process_launch_rows": singles["C4x8_fp64"]["launch_rows"]}
+    calls = sorted(sum(rep["moments"]["rollout_calls_by_rank"], []))
+    check(calls == [(40, 0), (40, 40)] and max(one) <= 1e-12
+          and sorted(sum(rows, [])) == ([40, 40] if on_card else []),
+          f"{what} moments: {rep['moments']}")
+    rep["C4x8_fp32_timed"] = [r["C4x8_fp32_timed"][0]["timed"]
+                              for r in ranks]
+    rep["C4x8_fp32_one_process"] = singles["C4x8_fp32_timed"]["timed"]
+    six = [r["six_m512"][0] for r in ranks]
+    res = six[0]["results"]
+    rep["six_m512"] = {
+        "results": res, "launches_by_rank": [x["launches"] for x in six],
+        "launch_rows_by_rank": [x["launch_rows"] for x in six],
+        "resident": sum((x["launch_resident"] for x in six), []),
+        "train_s_20_iterations": [x["train_s"] for x in six],
+        "nll_first": six[0]["trace"][0].tolist(),
+        "nll_last": six[0]["trace"][-1].tolist()}
+    check(sum(x["launches"] for x in six) == (6 if on_card else 0)
+          and not any(rep["six_m512"]["resident"])
+          and all(x["results"] == res for x in six)
+          and all(math.isfinite(v["rmse"]) and math.isfinite(v["nll"])
+                  for v in res.values())
+          and bool(torch.isfinite(six[0]["trace"]).all()),
+          f"{what} six datasets: {rep['six_m512']}")
+    return rep
+
+
+def _check_sp(torch, ranks, singles, what, on_card=True):
+    rels = [_diff(torch, r["kink_fp64"][0], singles["kink_fp64"], 1e-10,
+                  1e-12) for r in ranks]
+    rep = {"kink_fp64": {"max_rel_diff_vs_one_process": max(x[0]
+                                                             for x in rels),
+                         "within_rtol_1e-10": all(x[1] for x in rels),
+                         "seconds": [r["kink_fp64"][1] for r in ranks]},
+           "kink_fp32_timed": [r["kink_fp32_timed"][0]["timed"]
+                               for r in ranks],
+           "kink_fp32_one_process": singles["kink_fp32_timed"]["timed"]}
+    check(all(x[1] for x in rels), f"{what} kink: {rep['kink_fp64']}")
+    return rep
+
+
+def phase_mesh(torch, card, device="cuda:0"):
+    """Phase 7: the mesh half of ``parallel/``, through
+    ``parallel.distributed.spawn_local`` and the jobs of
+    ``parallel/rank_jobs.py`` (the ranks import nothing of JAX), each held
+    against the same job in this process on the card.
+
+    7a: NCCL at world size 1 on cuda:0, mesh (1, 1): 8 ballbeam C4 chains,
+    50 fp32 iterations, then ``multichain_moments``: bit-equal to the run
+    without a mesh.  7b: gloo, 4 ranks sharing cuda:0 (NCCL refuses two
+    ranks on one card), dp=2 × ep=2: 8 C4 chains fp64 for 20 iterations and
+    4 C5 chains fp64 for 3, each within rtol 1e-10 of the one-process run;
+    the C4 chains' moments from 2 launches of 40 rows (one a dp group,
+    Philox rows offset), equal to one 80-row launch on the same state
+    within rtol 1e-12; 8 C4 chains fp32, 200 iterations timed (ms an
+    iteration, the collectives' share of the host time) beside one
+    process's 8 chains timed alike; six datasets ×
+    M=512 for 20 iterations and ``evaluate()`` (6 launches, global plan).
+    7c: gloo, 4 ranks sharing cuda:0, sp=4: kink N=5000 C4 full batch,
+    fp64 for 10 iterations within rtol 1e-10 of the one-process
+    ``Trainer``; fp32 timed beside the one-process rate.  7d: 7b and 7c
+    over NCCL on 4 cards when the machine has them.  Timings of ranks that
+    share one card measure correctness and overhead, not scaling.
+    ``device="cpu"`` rehearses it on the host (gloo throughout, no 7d)."""
+    from ffvd_tpu_torch.parallel.distributed import spawn_local
+    from ffvd_tpu_torch.parallel.rank_jobs import chains_job, jobs_in_turn
+    dev = torch.device(device)
+    out = {}
+    # 7a
+    spec = _chain_spec("ballbeam", 8, 4, "float32", 50,
+                       moments=dict(test_len=500, seed=1))
+    t0 = time.time()
+    (ranked,) = spawn_local(chains_job, 1,
+                            "nccl" if dev.type == "cuda" else "gloo", device,
+                            args=(dict(spec, mesh=(1, 1)),), timeout=300)
+    a_s = time.time() - t0
+    one = chains_job(dev, spec)
+    rel, _, equal = _diff(torch, ranked, one, 0.0, 0.0)
+    m_rel = _moments_diff(ranked["moments"], one["moments"])
+    out["7a"] = {"backend": "nccl" if dev.type == "cuda" else "gloo",
+                 "world_size": 1, "mesh": [1, 1],
+                 "chains": 8, "iterations": 50, "precision": "fp32",
+                 "bit_equal": equal, "max_rel_diff": rel,
+                 "moments_max_rel_diff": m_rel,
+                 "launches": ranked["launches"],
+                 "launch_rows": ranked["launch_rows"], "seconds": a_s}
+    emit("mesh_7a", **out["7a"])
+    card_launches = 1 if dev.type == "cuda" else 0   # plain on the host
+    check(equal and max(m_rel) == 0.0
+          and ranked["rollout_calls"] == [(80, 0)]
+          and ranked["launches"] == card_launches,
+          f"7a: mesh (1, 1) differs from one process: {out['7a']}")
+    plan_b, plan_c = _mesh_plans()
+    singles = {name: jobs_in_turn(dev, [(name, kind, dict(spec, mesh=None))]
+                                  )[name][0]
+               for name, kind, spec in plan_b[:3] + plan_c}
+    # 7b, 7c: gloo ranks sharing the card, in one set of processes
+    t0 = time.time()
+    ranks = spawn_local(jobs_in_turn, 4, "gloo", device,
+                        args=(plan_b + plan_c,), timeout=600)
+    bc_s = time.time() - t0
+    for key, check_fn in (("7b", _check_dp_ep), ("7c", _check_sp)):
+        out[key] = {"backend": "gloo", "ranks": 4, "cards": 1,
+                    "seconds_7b_and_7c": bc_s,
+                    **check_fn(torch, ranks, singles, key,
+                               dev.type == "cuda")}
+        emit(f"mesh_{key}", card=card, **out[key])
+    # 7d: NCCL over 4 cards
+    n = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n >= 4:
+        out["7d"] = {"ran": True, "cards": n}
+        ranks = spawn_local(jobs_in_turn, 4, "nccl", "cuda",
+                            args=(plan_b + plan_c,), timeout=600)
+        for key, check_fn in (("7b", _check_dp_ep), ("7c", _check_sp)):
+            out["7d"][key] = check_fn(torch, ranks, singles, f"7d {key}")
+        emit("7d", **out["7d"])
+    else:
+        out["7d"] = {"ran": False, "cards": n}
+        emit("7d", **out["7d"])
+    return {"launches": {
+        "mesh_nccl_C4x8": out["7a"]["launches"],
+        "mesh_gloo_dp2ep2_C4x8": sum(out["7b"]["moments"]
+                                     ["launches_by_rank"]),
+        "mesh_gloo_dp2ep2_six_m512": sum(out["7b"]["six_m512"]
+                                         ["launches_by_rank"])}}
+
+
 def phase_timing(torch, ro):
     """Phase 6: kernel and plain-version times at the main shapes, the
     kernel's time at S=64 beside them (64 clusters queue past 132 SMs), and
@@ -1793,6 +2105,7 @@ def main() -> int:
     timed("fp64_deep", phase_fp64_deep, torch)
     timed("fp64_segment", phase_fp64_segment, torch)
     timed("fp64_batched", phase_fp64_batched, torch)
+    mesh = timed("mesh", phase_mesh, torch, card)
     timing = timed("timing", phase_timing, torch, ro)
     emit("phase_seconds", **seconds, total=time.time() - t0)
 
@@ -1814,7 +2127,7 @@ def main() -> int:
                             "ensemble_C4x2": ensemble}.items()},
             "multichain_C4x8": multichain["C4x8"],
             "multichain_C5x4": multichain["C5x4"],
-            "six_datasets_m512": six},
+            "six_datasets_m512": six, **mesh["launches"]},
         "fp32_s80_per_sample": {k: timing["fp32_s80_per_sample"][k] for k in
                                 ("ms", "plain_ms", "bound_ms", "bound_by")},
         "fp32_m512_global": {k: timing["fp32_m512_global"][k] for k in
@@ -1825,7 +2138,8 @@ def main() -> int:
         "per_sample": {
             "launches": sum(v["rollout_launches_evaluate"]
                             for v in sampler.values())
-            + multichain["C4x8"] + multichain["C5x4"],
+            + multichain["C4x8"] + multichain["C5x4"]
+            + sum(mesh["launches"].values()),
             "max_abs_err": ps_worst["fp32"], "ms": ps32["ms"],
             "plain_ms": ps32["plain_ms"], "bound_ms": ps32["bound_ms"],
             "bound_by": ps32["bound_by"], "library_ms": None,

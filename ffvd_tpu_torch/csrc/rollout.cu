@@ -19,8 +19,12 @@
 // 0 when shared, and each cluster offsets its pointers by s × stride.
 //
 // ε is read from `noise` (S,T,D) when given; otherwise it is drawn here:
-// Philox4x32-10 keyed by the 64-bit `seed`, counter (s, t, d, 0), and the
-// Box-Muller of pallas_rollout.py::bits_to_normal on the first two words.
+// Philox4x32-10 keyed by the 64-bit `seed`, counter (row_offset + s, t, d,
+// 0), and the Box-Muller of pallas_rollout.py::bits_to_normal on the first
+// two words.  `row_offset` lets a launch of rows [r0, r1) of a larger batch
+// (one launch a process of a sharded run) draw the normals that one launch
+// of the whole batch gives those rows; each row's arithmetic is independent
+// of the others', so the rows come out as the whole launch's.
 // ffvd_tpu_torch/ops/rollout.py holds the plain PyTorch version of all of it,
 // the generator included, so both give the same stream for the same seed.
 //
@@ -207,7 +211,8 @@ __global__ void rollout_kernel(
     const T* __restrict__ noise,   // (S, T, D)    or null: draw in-kernel
     T* __restrict__ xs,            // (S, T, D)
     T* __restrict__ vs,            // (S, T, D)
-    int n_t, int D, int M, int CU, int G, SampleStrides st, uint64_t seed) {
+    int n_t, int D, int M, int CU, int G, SampleStrides st, uint64_t seed,
+    uint32_t row_offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sh = reinterpret_cast<T*>(smem_raw);
   cg::cluster_group cluster = cg::this_cluster();
@@ -305,8 +310,8 @@ __global__ void rollout_kernel(
       const int d = r + g * C;
       s_eps[g] = noise != nullptr
                      ? noise[((size_t)s * n_t + t) * D + d]
-                     : philox_normal<T>(seed, (uint32_t)s, (uint32_t)t,
-                                        (uint32_t)d);
+                     : philox_normal<T>(seed, row_offset + (uint32_t)s,
+                                        (uint32_t)t, (uint32_t)d);
     }
     for (int i = tid; i < GM; i += nth) {
       const T* zr = s_z + i * din;
@@ -409,7 +414,7 @@ int launch(const T* x0, const T* zs, const T* ils, const T* kvar, const T* lp,
            const T* u, const T* q, const T* ctrl, const T* qp, const T* noise,
            T* xs, T* vs, int S, int n_t, int D, int M, int CU, int C, int G,
            int threads, int smem_bytes, SampleStrides st, uint64_t seed,
-           cudaStream_t stream) {
+           uint32_t row_offset, cudaStream_t stream) {
   int max_threads = 0, optin = 0;
   const int err = kernel_limits<T, kResident>(&max_threads, &optin);
   if (err != 0) return err;
@@ -440,7 +445,7 @@ int launch(const T* x0, const T* zs, const T* ils, const T* kvar, const T* lp,
   if (clusters < 1) return kErrCluster;
   e = cudaLaunchKernelEx(&cfg, rollout_kernel<T, kResident>, x0, zs, ils,
                          kvar, lp, u, q, ctrl, qp, noise, xs, vs, n_t, D, M,
-                         CU, G, st, seed);
+                         CU, G, st, seed, row_offset);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -451,12 +456,12 @@ int launch_rollout(const T* x0, const T* zs, const T* ils, const T* kvar,
                    const T* qp, const T* noise, T* xs, T* vs, int S, int n_t,
                    int D, int M, int CU, int C, int G, int threads,
                    int smem_bytes, int resident, SampleStrides st,
-                   uint64_t seed, void* stream) {
+                   uint64_t seed, uint32_t row_offset, void* stream) {
   if (C < 1 || C > 8 || C > D || G != (D + C - 1) / C) return kErrCluster;
   auto* launcher = resident ? &launch<T, true> : &launch<T, false>;
   return launcher(x0, zs, ils, kvar, lp, u, q, ctrl, qp, noise, xs, vs, S,
                   n_t, D, M, CU, C, G, threads, smem_bytes, st, seed,
-                  (cudaStream_t)stream);
+                  row_offset, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -490,11 +495,12 @@ extern "C" int ffvd_rollout_f32(const float* x0, const float* zs,
                                 unsigned st_kvar, unsigned st_lp,
                                 unsigned st_u, unsigned st_q,
                                 unsigned st_qp, uint64_t seed,
-                                void* stream) {
+                                unsigned row_offset, void* stream) {
   const SampleStrides st{st_zs, st_ils, st_kvar, st_lp, st_u, st_q, st_qp};
   return launch_rollout<float>(x0, zs, ils, kvar, lp, u, q, ctrl, qp, noise,
                                xs, vs, S, n_t, D, M, CU, C, G, threads,
-                               smem_bytes, resident, st, seed, stream);
+                               smem_bytes, resident, st, seed, row_offset,
+                               stream);
 }
 
 extern "C" int ffvd_rollout_f64(const double* x0, const double* zs,
@@ -509,11 +515,12 @@ extern "C" int ffvd_rollout_f64(const double* x0, const double* zs,
                                 unsigned st_kvar, unsigned st_lp,
                                 unsigned st_u, unsigned st_q,
                                 unsigned st_qp, uint64_t seed,
-                                void* stream) {
+                                unsigned row_offset, void* stream) {
   const SampleStrides st{st_zs, st_ils, st_kvar, st_lp, st_u, st_q, st_qp};
   return launch_rollout<double>(x0, zs, ils, kvar, lp, u, q, ctrl, qp, noise,
                                 xs, vs, S, n_t, D, M, CU, C, G, threads,
-                                smem_bytes, resident, st, seed, stream);
+                                smem_bytes, resident, st, seed, row_offset,
+                                stream);
 }
 
 // n standard normals from the rollout's generator: out[i] is the draw of

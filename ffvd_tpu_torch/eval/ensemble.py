@@ -20,6 +20,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ffvd_tpu_torch.model.likelihoods import use_full_r
 
@@ -120,43 +121,62 @@ def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
     model's inter-layer noise is drawn from it too).
 
     The emission moments use each chain's params after thinning, as JAX's
-    do: the rollouts came from the moved chain."""
+    do: the rollouts came from the moved chain.
+
+    On a mesh (``MultiChainTrainer(mesh=)``) each process thins its own
+    chains and dims with its share of the draws; the first process of each
+    'ep' group rolls out its chains' rows [c0·S, c1·S) with all D dims in
+    one launch whose Philox rows start at c0·S (``row_offset``), so the
+    rows are those of one launch of all C×S; the rollouts are then summed
+    into every process, which returns every chain's moments and its own
+    share of the thinned state.  The seed is drawn on every process."""
     from ffvd_tpu_torch.eval.rollout import (posterior_inputs,
                                              recursion_rollout,
                                              rollout_controls, thin_posterior)
     from ffvd_tpu_torch.model.deep import hidden_normals
     from ffvd_tpu_torch.ops import rollout as rollout_ops
     from ffvd_tpu_torch.ops.kernels import KernelParams
-    from ffvd_tpu_torch.parallel.sharding import member
+    from ffvd_tpu_torch.parallel.distributed import all_sum_flat
+    from ffvd_tpu_torch.parallel.sharding import (axis_index, gather_leaves,
+                                                  member)
 
     cfg, c = mct.cfg, mct.n
+    mesh = mct.mesh
+    c_all, c0 = mct.n_whole, mct.place.members[0]
     num = num or cfg.num_posterior_samples
     spacing = spacing or cfg.posterior_sample_spacing
+    r0, r1 = c0 * num, (c0 + c) * num       # this process's rows
     controls = rollout_controls(mct.data, test_len)
     x = state.params.x
     d = x.shape[-1]
     if mct.has_sghmc:
         samples, state = thin_posterior(mct, state, num, spacing,
                                         thin_generator, thin_noise)
+        samples = [mct.whole_dims(p) for p in samples]
         rows = [member(samples[s], i) for i in range(c) for s in range(num)]
     else:
-        rows = [member(state.params, i) for i in range(c)]
+        full = mct.whole_dims(state.params)
+        rows = [member(full, i) for i in range(c)]
+    # One process of an 'ep' group rolls its chains out.
+    launch = axis_index(mesh, "ep") == 0
     if cfg.kernel_type != "SquaredExponential" or cfg.n_layers > 1:
         n_hidden = len(state.params.hidden)
         if noise is None:
-            noise = hidden_normals(1, (c, num, test_len), d, generator,
+            noise = hidden_normals(1, (c_all, num, test_len), d, generator,
                                    x.dtype, x.device)[0]
-        hidden_noise = hidden_normals(n_hidden, (c * num, test_len), d,
-                                      generator, x.dtype, x.device)
-        noise = noise.reshape(c * num, test_len, d)
+        hidden_noise = [e[r0:r1] for e in hidden_normals(
+            n_hidden, (c_all * num, test_len), d, generator, x.dtype,
+            x.device)]
+        noise = noise.reshape(c_all * num, test_len, d)[r0:r1]
         per = num if len(rows) == c else 1        # rows sharing params
         rolls = [recursion_rollout(
             mct, p, controls, noise[r * per:(r + 1) * per],
             [e[r * per:(r + 1) * per] for e in hidden_noise])
-            for r, p in enumerate(rows)]
-        xs = torch.cat([r[0] for r in rolls])
-        vs = torch.cat([r[1] for r in rolls])
-    else:
+            for r, p in enumerate(rows if launch else ())]
+        if launch:
+            xs = torch.cat([r[0] for r in rolls])
+            vs = torch.cat([r[1] for r in rolls])
+    elif launch:
         inp = posterior_inputs(mct, rows)
         if len(rows) == c:                        # iid: S rows a chain
             rep = lambda t: (None if t is None
@@ -166,15 +186,26 @@ def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
             inp["kparams"] = KernelParams(rep(kp.log_variance),
                                           rep(kp.log_lengthscales))
         xs, vs = rollout_ops.rollout_batched(
-            controls=controls, generator=generator,
+            controls=controls, generator=generator, row_offset=r0,
             noise=None if noise is None
-            else noise.reshape(c * num, test_len, d), **inp)
-    xs = xs.reshape(c, num, test_len, d)
-    vs = vs.reshape(c, num, test_len, d)
-    full_r = use_full_r(cfg.emission_noise, state.params.c.shape[-1])
+            else noise.reshape(c_all * num, test_len, d)[r0:r1], **inp)
+    elif noise is None:
+        rollout_ops.draw_seed(generator)          # the launch's seed
+    emission = {k: state.params.leaves()[k] for k in ("c", "d", "log_rchol")}
+    if mesh is not None:
+        # Every process's rows, and every chain's emission parameters.
+        xs_all = x.new_zeros((2, c_all * num, test_len, d))
+        if launch:
+            xs_all[0, r0:r1], xs_all[1, r0:r1] = xs, vs
+        xs, vs = all_sum_flat([xs_all], dist.group.WORLD)[0]
+        emission = gather_leaves(emission, mct.place, mesh)
+    xs = xs.reshape(c_all, num, test_len, d)
+    vs = vs.reshape(c_all, num, test_len, d)
+    full_r = use_full_r(cfg.emission_noise, emission["c"].shape[-1])
+    p0 = member(state.params, 0)
     chains = []
-    for i in range(c):
-        p = member(state.params, i)
+    for i in range(c_all):
+        p = dataclasses.replace(p0, **{k: v[i] for k, v in emission.items()})
         chains.append((_f64(xs[i] @ p.c + p.d), _f64(vs[i] @ (p.c * p.c)),
                        _f64(p.r_var_diag if full_r else p.rchol_diag ** 2)))
     return chains, state

@@ -120,7 +120,8 @@ def thin_posterior(trainer: Trainer, state: TrainState, num: int,
     from ``generator``.  Returns (the ``num`` thinned params, the state
     with the moved chain).  A ``parallel.BatchedTrainer`` thins every
     member at once on the batched gradient; its state, samples and
-    injected normals carry the member axis first."""
+    injected normals carry the member axis first; a process of a sharded
+    run keeps its share of each draw (``Trainer._share``)."""
     subset = trainer.subset
     params = state.params
     sub = {k: v.detach() for k, v in subset.split(params).items()}
@@ -132,14 +133,17 @@ def thin_posterior(trainer: Trainer, state: TrainState, num: int,
     for i in range(num):
         for j in range(spacing):
             nz = (None if thin_noise is None
-                  else {k: pick(v, i, j) for k, v in thin_noise.items()})
+                  else trainer._share_tree({k: pick(v, i, j)
+                                            for k, v in thin_noise.items()}))
             eps = None
             if trainer.stochastic:
-                eps = ([pick(p, i, j) for p in thin_prop]
-                       if thin_prop is not None else hidden_normals(
-                           n_hidden, lead + (params.x.shape[-2] - 1,),
-                           params.x.shape[-1], generator, params.x.dtype,
-                           params.x.device))
+                eps = [trainer._share(p) for p in (
+                    [pick(p, i, j) for p in thin_prop]
+                    if thin_prop is not None else hidden_normals(
+                        n_hidden,
+                        trainer._whole_lead() + (params.x.shape[-2] - 1,),
+                        params.x.shape[-1], generator, params.x.dtype,
+                        params.x.device))]
             sub, sstate = trainer.sghmc_move(sub, sstate, params, False, nz,
                                              generator, eps=eps)
         samples.append(subset.merge(sub, params))

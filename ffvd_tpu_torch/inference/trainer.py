@@ -26,7 +26,9 @@ evaluation stay full batch and mean-propagated.
 
 The random numbers come from the caller's ``torch.Generator`` or are
 injected (``noise=``, ``feed=``, ``pg=``, ``starts=``, ``prop=``), so the
-tests can feed both packages the same draws.
+tests can feed both packages the same draws.  A process of a sharded run
+(``parallel/``) makes every draw at the shape it has in one process and
+keeps its share, through the hooks at the end of ``Trainer``.
 
 ``cfg.collapse_precision="ds64"`` trains on the collapsed bound evaluated
 as one float64 segment (``model/ds_collapse.py``); "hybrid" trains native
@@ -174,6 +176,7 @@ class Trainer:
         self.has_sghmc = SGHMC in self.labels.values()
         self.has_adam = ADAM in self.labels.values()
         self.subset = SubsetOps(self.labels)
+        self.adam_paths = SubsetOps(self.labels, ADAM).paths
         # "hybrid" trains native; its ds64 tail is a second Trainer with
         # collapse_precision="ds64" (api.FFVDModel.fit), on the same state.
         self.train_precision = ("native" if cfg.collapse_precision == "hybrid"
@@ -290,9 +293,9 @@ class Trainer:
             out["starts"] = self._draw_starts(n_evals, generator, dev)
         if self.stochastic:
             rows = self.window_n or self.data.y.shape[-2]
-            out["prop"] = hidden_normals(
-                self.cfg.n_layers - 1, self.lead + (n_evals, rows),
-                x.shape[-1], generator, x.dtype, dev)
+            out["prop"] = [self._share(p) for p in hidden_normals(
+                self.cfg.n_layers - 1, self._whole_lead() + (n_evals, rows),
+                x.shape[-1], generator, x.dtype, dev)]
         return out
 
     def _draw_starts(self, n_evals: int, generator: torch.Generator,
@@ -323,6 +326,7 @@ class Trainer:
             nll = self.train_nll(GPSSMParams.from_leaves({**fixed, **req}),
                                  data, start, eps)
             grads = grads_of(nll, list(req.values()))
+        grads = self._reduce_grads(list(req), grads)
         return dict(zip(req, sanitize_grads(grads, self.cfg.sghmc_grad_clip)))
 
     def sghmc_move(self, sub: Leaves, sstate: SGHMCState, params: GPSSMParams,
@@ -337,10 +341,12 @@ class Trainer:
         gradient's window start and inter-layer normals."""
         cfg = self.cfg
         grads = self.subset_grads(sub, params, start=start, eps=eps)
+        if noise is None:
+            noise = self._sampler_normals(sub, generator)
         sub, sstate = sghmc_step(
             sub, grads, sstate, epsilon=cfg.epsilon, mdecay=cfg.mdecay,
             x_n=params.x.shape[-2], burn_in=burn_in, p_clip=cfg.sghmc_p_clip,
-            spike_clip=cfg.sghmc_spike_clip, noise=noise, generator=generator)
+            spike_clip=cfg.sghmc_spike_clip, noise=noise)
         return clip_log_leaves(sub, cfg.log_clip_bounds), sstate
 
     def _sghmc_phase(self, params: GPSSMParams, sstate: SGHMCState,
@@ -366,7 +372,7 @@ class Trainer:
         i ~ U[0, max(count, 1)) drawn after the snapshot (trainer.py:424),
         one slot per member."""
         dev = state.params.x.device
-        shape = self.lead or (1,)
+        shape = self._whole_lead() or (1,)
         if feed is None:
             if generator is None:
                 raise ValueError("the window feed needs a torch.Generator or "
@@ -377,6 +383,7 @@ class Trainer:
         else:
             i = torch.as_tensor(np.asarray(feed, dtype=np.int64)
                                 .reshape(shape), device=dev)
+        i = self._share(i)
         return self.subset.merge(
             {k: self._window_slot(w, i) for k, w in state.window.items()},
             state.params)
@@ -410,14 +417,18 @@ class Trainer:
         drawn = self.grad_draws(n_evals, generator, state.params.x) if (
             (self.window_n is not None and starts is None)
             or (self.stochastic and prop is None)) else {}
-        starts = drawn.get("starts") if starts is None else starts
-        prop = drawn.get("prop") if prop is None else prop
+        starts = drawn.get("starts") if starts is None else self._share(
+            starts)
+        prop = (drawn.get("prop") if prop is None
+                else [self._share(p) for p in prop])
         m = len(self.lead)
         if self.has_sghmc:
             if noise is None:   # the 21 sub-steps' normals, drawn up front
-                noise = {k: v.movedim(0, m) for k, v in tree_normals(
+                noise = self._sampler_normals(
                     self.subset.split(state.params), generator,
-                    (len(SUBSTEP_FLAGS),)).items()}
+                    len(SUBSTEP_FLAGS))
+            else:
+                noise = self._share_tree(noise)
             state.params, state.sghmc = self._sghmc_phase(
                 state.params, state.sghmc, noise, starts, prop)
             # Window snapshot as a ring buffer (base_model.py:927-933).
@@ -438,6 +449,7 @@ class Trainer:
             with torch.enable_grad():
                 nll = self.train_nll(feed_params, None, start, eps)
                 grads = grads_of(nll, group)
+            grads = self._reduce_grads(self.adam_paths, grads)
             for p, g in zip(group, sanitize_grads(grads,
                                                   self.cfg.sghmc_grad_clip)):
                 p.grad = g
@@ -446,7 +458,7 @@ class Trainer:
             with torch.no_grad():
                 nll = self.train_nll(state.params)
         state.step += 1
-        return nll.detach()
+        return self._reduce_nll(nll.detach())
 
     def run(self, state: TrainState, num_iterations: int,
             chunk_size: int = 500, nan_check: bool = True,
@@ -467,16 +479,16 @@ class Trainer:
         done = 0
         while done < num_iterations:
             n = min(chunk_size, num_iterations - done)
-            nlls = torch.stack([
+            nlls = self._gather_trace(torch.stack([
                 self.outer_step(state, generator,
                                 **(next(draws) if draws is not None else {}))
-                for _ in range(n)])
+                for _ in range(n)]))
             if nan_check and not bool(torch.isfinite(nlls).all()):
                 self._raise_non_finite(nlls, done, state)
             traces.append(nlls)
             done += n
         if not traces:
-            return state, torch.zeros((0,) + self.lead,
+            return state, torch.zeros((0,) + self._whole_lead(),
                                       dtype=state.params.x.dtype,
                                       device=state.params.x.device)
         return state, torch.cat(traces)
@@ -492,3 +504,48 @@ class Trainer:
             f"non-finite nll at iteration {done + bad}; "
             f"finite-by-block: {diag}. For ill-conditioned fp32 "
             f"runs try fp64 or a larger jitter (cfg.jitter).")
+
+    # -- a sharded run's hooks: identity in one process ----------------------
+    # parallel/sharding.py (members over 'dp', latent dims over 'ep') and
+    # parallel/sequence.py (transitions over 'sp') override them.
+
+    def _whole_lead(self) -> Tuple[int, ...]:
+        """The member axis that a draw has in one process."""
+        return self.lead
+
+    def _whole_like(self, leaves: Leaves) -> Leaves:
+        """Tensors shaped as ``leaves`` are in one process: the templates
+        of their draws."""
+        return leaves
+
+    def _share(self, t: torch.Tensor, path: Optional[str] = None
+               ) -> torch.Tensor:
+        """This process's share of ``t``, a draw at one process's shape
+        (member axis first); ``path``: the leaf whose shape it has."""
+        return t
+
+    def _reduce_grads(self, paths, grads) -> list:
+        """The gradients of the leaves at ``paths``, summed over the
+        processes whose objectives share them."""
+        return grads
+
+    def _reduce_nll(self, nll: torch.Tensor) -> torch.Tensor:
+        """The nll of the whole objective from this process's part."""
+        return nll
+
+    def _gather_trace(self, nlls: torch.Tensor) -> torch.Tensor:
+        """A chunk's nll trace of every member, from this process's."""
+        return nlls
+
+    def _share_tree(self, tree: Leaves) -> Leaves:
+        return {k: self._share(v, k) for k, v in tree.items()}
+
+    def _sampler_normals(self, sub: Leaves, generator, steps: int = 0
+                         ) -> Leaves:
+        """Standard normals for the SG-HMC leaves ``sub``: ``steps``
+        sub-steps' (path → lead + (steps,) + leaf), or one sub-step's."""
+        m = len(self.lead)
+        drawn = tree_normals(self._whole_like(sub), generator,
+                             (steps,) if steps else ())
+        return self._share_tree({k: v.movedim(0, m) if steps else v
+                                 for k, v in drawn.items()})

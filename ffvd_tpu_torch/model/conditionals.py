@@ -114,12 +114,21 @@ def gp_transition(
     return (mu + x_t) + eps * torch.sqrt(var_tot), var_tot
 
 
+def no_reduce(t: torch.Tensor) -> torch.Tensor:
+    """A sum over transitions held whole by one process: as it is."""
+    return t
+
+
 def _collapse_pieces(a: torch.Tensor, dx: torch.Tensor, q: torch.Tensor,
-                     gram_scale: float = 1.0):
-    """H_d = s·F̃ᵀF̃/Q_d + I and a_d = s·F̃ᵀ Δx_d / Q_d."""
+                     gram_scale: float = 1.0, reduce=no_reduce):
+    """H_d = s·F̃ᵀF̃/Q_d + I and a_d = s·F̃ᵀ Δx_d / Q_d.  ``reduce`` takes
+    the sums over transitions, F̃ᵀF̃ and F̃ᵀΔx, before they are scaled (a
+    process of a time-sharded run holds some of the transitions:
+    ``parallel/sequence.py``)."""
     eye = torch.eye(a.shape[1], dtype=a.dtype, device=a.device)
-    h = gram_scale * (a @ a.mT) / q[:, None, None] + eye       # (D, M, M)
-    avec = gram_scale * torch.einsum("dmn,nd->dm", a, dx) / q[:, None]
+    h = gram_scale * reduce(a @ a.mT) / q[:, None, None] + eye  # (D, M, M)
+    avec = (gram_scale * reduce(torch.einsum("dmn,nd->dm", a, dx))
+            / q[:, None])
     return h, avec
 
 
@@ -133,6 +142,7 @@ def collapsed_bound_terms(
     q: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     gram_scale: float = 1.0,
+    reduce=no_reduce,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The three collapsed-bound pieces (``collapse_after_kernel_
     precalculation``, conditionals_multi_output.py:230-257):
@@ -144,7 +154,10 @@ def collapsed_bound_terms(
     un-normalised (the caller divides by Y_N).  ``gram_scale`` is the
     minibatch factor Y_N/batch on the H-gram and a-vector (:246-248); the
     trace term is deliberately not scaled.  x: (N+1, D) latent states;
-    xc: (N, Din) GP inputs; ``mask`` (N,) zeroes padded transitions."""
+    xc: (N, Din) GP inputs; ``mask`` (N,) zeroes padded transitions.
+    ``reduce`` takes each sum over the transitions (the gram, the
+    a-vector, the trace) before anything nonlinear: identity here, the
+    'sp' all-reduce when x, xc and mask are one process's rows."""
     a = projection(kernel_type, kparams, pre, z, xc)          # (D, M, N)
     kdiag = kops.diag(kernel_type, kparams, xc)               # (D, N)
     dx = x[1:] - x[:-1]                                       # (N, D)
@@ -153,13 +166,14 @@ def collapsed_bound_terms(
         kdiag = kdiag * mask[None, :]
         dx = dx * mask[:, None]
 
-    h, avec = _collapse_pieces(a, dx, q, gram_scale)
+    h, avec = _collapse_pieces(a, dx, q, gram_scale, reduce)
     chol_h, hinv_l = cholops.chol_and_inv(h)
     term1 = 0.5 * torch.sum(cholops.chol_logdet(chol_h))
     # aᵀH⁻¹a = ‖L_H⁻¹ a‖² — a matmul against the explicit inverse factor.
     v = torch.einsum("dmk,dk->dm", hinv_l, avec)
     term2 = -0.5 * torch.sum(v * v)
-    trace = 0.5 * torch.sum((kdiag - torch.sum(a * a, dim=1)) / q[:, None])
+    trace = 0.5 * reduce(torch.sum((kdiag - torch.sum(a * a, dim=1))
+                                   / q[:, None]))
     return term1, term2, trace
 
 

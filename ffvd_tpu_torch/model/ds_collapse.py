@@ -99,16 +99,18 @@ def ds_collapsed_terms(
     mask: Optional[torch.Tensor] = None,
     gram_scale=1.0,
     refine: Optional[int] = None,
+    reduce=cond.no_reduce,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(term1, term2, trace) of the collapsed bound, float64 throughout,
     float32 out: the values of ``kernel_precal`` + ``collapsed_bound_terms``
     (same un-normalised scaling; the caller divides by Y_N), with log Q in
     place of Q.  ``mask`` zeroes padded transitions of A, Kdiag and Δx;
-    ``gram_scale`` multiplies 1/Q in H and a, not in the trace."""
+    ``gram_scale`` multiplies 1/Q in H and a, not in the trace; ``reduce``
+    takes the sums over transitions, in float64 (``collapsed_bound_terms``)."""
     kp, z64 = _kernel64(kparams), _f64(z)
     pre = cond.kernel_precal(kernel_type, kp, z64, jitter)
     terms = cond.collapsed_bound_terms(
         kernel_type, kp, pre, z64, _f64(x), _f64(xc), torch.exp(_f64(log_q)),
         mask=None if mask is None else _f64(mask),
-        gram_scale=_scale64(gram_scale))
+        gram_scale=_scale64(gram_scale), reduce=reduce)
     return tuple(t.to(torch.float32) for t in terms)

@@ -16,11 +16,21 @@ per-layer inter-layer normals of one gradient evaluation (None: layer
 means).  ``collapse_precision="ds64"`` evaluates the collapsed segment in
 float64 (``model/ds_collapse.py``); everything else stays in the params'
 dtype.
+
+A process of a sharded run (``parallel/``) evaluates its share of the
+objective.  The objective is a sum over the head's latent dims of per-dim
+parts (the collapsed or uncollapsed GP terms, the x-dynamics term, the
+kernel, log Q and determinantal priors, the whole-u prior) plus a shared
+part that couples the dims or has none (the emission, the other priors).
+``dims`` names the latent dims a process covers ('ep': its per-dim leaves
+hold only those, x and c all D) and ``shared`` whether it adds the shared
+part; ``rows`` names the transitions it holds ('sp') and ``reduce`` sums
+each sum over transitions across the processes before anything nonlinear.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -62,7 +72,11 @@ def elbo_terms(params: GPSSMParams, data: SSMData, *,
                emission_noise: str = "auto",
                collapse_precision: str = "native",
                ds64_refine: Optional[int] = None,
-               eps: Optional[Sequence[torch.Tensor]] = None
+               eps: Optional[Sequence[torch.Tensor]] = None,
+               dims: Optional[Tuple[int, int]] = None,
+               shared: bool = True,
+               rows: Optional[Tuple[int, int]] = None,
+               reduce: Optional[Callable] = None
                ) -> Dict[str, torch.Tensor]:
     """All nll terms.  Returns a dict whose 'nll' entry is the objective.
 
@@ -76,17 +90,28 @@ def elbo_terms(params: GPSSMParams, data: SSMData, *,
     the fp32 gradient bias of that segment (DESIGN §12); any other value
     evaluates it in the params' dtype.  Uncollapsed objectives and a deep
     model's hidden-layer propagation ignore it.  ``ds64_refine`` is
-    accepted and has no effect (float64 has nothing to refine)."""
+    accepted and has no effect (float64 has nothing to refine).
+
+    ``dims``, ``shared``: a share of the latent dims ('ep'); ``rows`` (t0,
+    t1): the transitions x[t0] → x[t0+1] … x[t1-1] → x[t1] ('sp', x and the
+    data whole), with ``reduce`` the sum across the processes that hold the
+    others (see the module docstring)."""
     n = params.n_transitions
-    mask = data.mask
+    t0, t1 = (0, n) if rows is None else rows
+    red = cond.no_reduce if reduce is None else reduce
+    mask = None if data.mask is None else data.mask[t0:t1]
     if mask is None:
         y_n = torch.tensor(float(n), dtype=params.x.dtype,
                            device=params.x.device)
     else:
-        y_n = torch.sum(mask)
-    return _assemble(params, params.x, data.y, data.control[:n], mask, y_n,
-                     y_n, 1.0, kernel_type, prior_type, u_collapse, jitter,
-                     emission_noise, eps, collapse_precision)
+        y_n = red(torch.sum(mask))
+    if eps is not None and rows is not None:
+        eps = [e[t0:t1] for e in eps]
+    return _assemble(params, params.x[t0:t1 + 1], data.y[t0:t1],
+                     data.control[t0:t1], mask, y_n, y_n, 1.0, kernel_type,
+                     prior_type, u_collapse, jitter, emission_noise, eps,
+                     collapse_precision, dims, shared, red)
+
 
 
 def negative_elbo(params: GPSSMParams, data: SSMData, **kw) -> torch.Tensor:
@@ -114,7 +139,9 @@ def windowed_elbo_terms(params: GPSSMParams, data: SSMData,
                         emission_noise: str = "auto",
                         collapse_precision: str = "native",
                         ds64_refine: Optional[int] = None,
-                        eps: Optional[Sequence[torch.Tensor]] = None
+                        eps: Optional[Sequence[torch.Tensor]] = None,
+                        dims: Optional[Tuple[int, int]] = None,
+                        shared: bool = True
                         ) -> Dict[str, torch.Tensor]:
     """Minibatch (random time window) objective, the reference's
     batch_placeholder semantics made live (``ffvd_tpu/model/elbo.py:169-
@@ -131,7 +158,7 @@ def windowed_elbo_terms(params: GPSSMParams, data: SSMData,
     window (at least 1), every window sum mask-weighted.  ``eps``: one
     (window_n, D) normal tensor per hidden layer, or None.
     ``collapse_precision``: as in ``elbo_terms``, the gram scale inside the
-    float64 segment."""
+    float64 segment.  ``dims``, ``shared``: as in ``elbo_terms``."""
     n = params.n_transitions
     dt, dev = params.x.dtype, params.x.device
     mask = data.mask
@@ -150,7 +177,7 @@ def windowed_elbo_terms(params: GPSSMParams, data: SSMData,
                      window_rows(data.control, start, window_n), mask_win,
                      y_n, batch, gram_scale, kernel_type, prior_type,
                      u_collapse, jitter, emission_noise, eps,
-                     collapse_precision)
+                     collapse_precision, dims, shared, cond.no_reduce)
 
 
 def windowed_negative_elbo(params: GPSSMParams, data: SSMData,
@@ -161,37 +188,51 @@ def windowed_negative_elbo(params: GPSSMParams, data: SSMData,
 
 def _assemble(params, x, y, ctrl, mask, y_n, batch, gram_scale, kernel_type,
               prior_type, u_collapse, jitter, emission_noise, eps,
-              collapse_precision):
+              collapse_precision, dims, shared, reduce):
     """The terms over the transitions x[0] → x[1] … x[W-1] → x[W] with
     observations y (W, P) and controls ctrl (W, U): full batch (x is the
-    whole trajectory, batch = Y_N, gram_scale 1) or a window.  Kmm is
-    factorised only on the branches that read it: the ds64 segment
-    factorises its own."""
+    whole trajectory, batch = Y_N, gram_scale 1), a window, or one
+    process's rows.  Kmm is factorised only on the branches that read it:
+    the ds64 segment factorises its own.  ``dims``, ``shared``, ``reduce``:
+    see the module docstring; the per-dim terms read x[:, dims]."""
     w = x.shape[0] - 1
     if mask is None:
-        msum = torch.sum
+        def msum(rows):
+            return reduce(torch.sum(rows))
     else:
         def msum(rows):           # rows: (W,) or (W, D) — mask leading axis
             m = mask if rows.dim() == 1 else mask[:, None]
-            return torch.sum(rows * m)
+            return reduce(torch.sum(rows * m))
     q = params.q
+    xd = x if dims is None else x[:, dims[0]:dims[1]]
 
-    # Emission term (dgp_model.py:248-250, :264).
-    y_mean = emission_mean(x[1:], params.c, params.d)
-    log_lik = msum(emission_log_lik_rows(params, y, y_mean, emission_noise))
-    nll_log_likelihood = -log_lik / batch
+    # Emission term (dgp_model.py:248-250, :264), shared by the dims.
+    if shared:
+        y_mean = emission_mean(x[1:], params.c, params.d)
+        log_lik = msum(emission_log_lik_rows(params, y, y_mean,
+                                             emission_noise))
+        nll_log_likelihood = -log_lik / batch
+    else:
+        nll_log_likelihood = x.new_zeros(())
 
-    # Priors (dgp_model.py:252, :286/:296, :326-334).
-    hyper_prior = priors.hyperparameter_prior(params.log_q, params.c,
-                                              params.d, params.log_rchol)
+    # Priors (dgp_model.py:252, :286/:296, :326-334): a sum over the dims
+    # (the kernel hypers, a determinantal prior_z, log Q), then the shared.
+    det = prior_type == "determinantal"
+    pz = (priors.prior_z(prior_type, kernel_type, params.kernel, params.z)
+          if det or shared else None)
     part_prior = (priors.prior_hyper(kernel_type, params.kernel)
-                  + priors.prior_z(prior_type, kernel_type, params.kernel,
-                                   params.z)
-                  + priors.prior_x0(params.x[0])
-                  + hyper_prior)
-    if params.hidden:
-        part_prior = part_prior + hidden_priors(kernel_type, prior_type,
-                                                params.hidden)
+                  + priors.log_q_prior(params.log_q))
+    if det:
+        part_prior = part_prior + pz
+    if shared:
+        if not det:
+            part_prior = part_prior + pz
+        part_prior = (part_prior + priors.prior_x0(params.x[0])
+                      + priors.emission_prior(params.c, params.d,
+                                              params.log_rchol))
+        if params.hidden:
+            part_prior = part_prior + hidden_priors(kernel_type, prior_type,
+                                                    params.hidden)
 
     xc = _gp_inputs(params, x[:w], ctrl, kernel_type, jitter, eps)
 
@@ -199,20 +240,21 @@ def _assemble(params, x, y, ctrl, mask, y_n, batch, gram_scale, kernel_type,
     if u_collapse:
         if collapse_precision == "ds64":
             term1, term2, trace = ds_collapsed_terms(
-                kernel_type, params.kernel, params.z, x, xc, params.log_q,
-                jitter=jitter, mask=mask, gram_scale=gram_scale)
+                kernel_type, params.kernel, params.z, xd, xc, params.log_q,
+                jitter=jitter, mask=mask, gram_scale=gram_scale,
+                reduce=reduce)
         else:
             pre = cond.kernel_precal(kernel_type, params.kernel, params.z,
                                      jitter)
             term1, term2, trace = cond.collapsed_bound_terms(
-                kernel_type, params.kernel, pre, params.z, x, xc, q,
-                mask=mask, gram_scale=gram_scale)
+                kernel_type, params.kernel, pre, params.z, xd, xc, q,
+                mask=mask, gram_scale=gram_scale, reduce=reduce)
         later_term1 = term1 / y_n
         later_term2 = term2 / y_n
         nll_trace = trace / y_n
         # Residual random-walk dynamics prior (dgp_model.py:283-284).
         x_t_prior_q = -msum(logdensity_norm_diag_nonvec(
-            x[1:], x[:-1], torch.sqrt(q))) / batch
+            xd[1:], xd[:-1], torch.sqrt(q))) / batch
         nll_part_prior = -part_prior / y_n
         nll = (nll_part_prior + nll_log_likelihood + x_t_prior_q
                + nll_trace + later_term1 + later_term2)
@@ -221,9 +263,9 @@ def _assemble(params, x, y, ctrl, mask, y_n, batch, gram_scale, kernel_type,
         pre = cond.kernel_precal(kernel_type, params.kernel, params.z, jitter)
         mean, var = cond.whitened_conditional(
             kernel_type, params.kernel, pre, params.z, params.u, xc)
-        mean = mean + x[:w]               # identity mean function (:346)
+        mean = mean + xd[:w]              # identity mean function (:346)
         reg_trace = -0.5 * torch.sum(var / q[None, :], dim=1)
-        reg_x_prior = logdensity_norm_diag(x[1:], mean, torch.sqrt(q))
+        reg_x_prior = logdensity_norm_diag(xd[1:], mean, torch.sqrt(q))
         nll_trace = -msum(reg_trace) / batch
         x_t_prior_q = -msum(reg_x_prior) / batch
         nll_part_prior = -(part_prior + priors.prior_u(params.u)) / y_n

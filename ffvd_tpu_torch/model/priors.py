@@ -66,9 +66,14 @@ def prior_x0(x0: torch.Tensor) -> torch.Tensor:
     return -0.5 * torch.sum(x0 * x0)
 
 
-def hyperparameter_prior(log_q, c, d, log_rchol) -> torch.Tensor:
-    """N(0,1) priors on log Q, C, d, log Rchol (dgp_model.py:326-334)."""
-    return (-0.5 * torch.sum(torch.square(log_q))
-            - 0.5 * torch.sum(torch.square(c))
+def log_q_prior(log_q) -> torch.Tensor:
+    """The N(0,1) prior on log Q (dgp_model.py:326-334): a sum over the
+    latent dims."""
+    return -0.5 * torch.sum(torch.square(log_q))
+
+
+def emission_prior(c, d, log_rchol) -> torch.Tensor:
+    """The N(0,1) priors on C, d and log Rchol (dgp_model.py:326-334)."""
+    return (-0.5 * torch.sum(torch.square(c))
             - 0.5 * torch.sum(torch.square(d))
             - 0.5 * torch.sum(torch.square(log_rchol)))

@@ -17,7 +17,10 @@ both packages the same draws) or drawn from Philox4x32-10 keyed by a 64-bit
 seed that the wrapper draws from the caller's ``torch.Generator``.  The
 plain version carries its own Philox (``philox4x32``) and Box-Muller
 (``bits_to_normal``), so the kernel and the plain version give the same
-trajectories for the same generator state.
+trajectories for the same generator state.  ``row_offset`` shifts the
+counter's row word: a launch of rows [r0, r1) of a larger batch with
+``row_offset=r0`` draws what one launch of the whole batch draws for those
+rows (one launch a process of a sharded run, ``eval/ensemble.py``).
 
 The kernel runs one thread-block cluster per sample and keeps each latent
 dim's triangular factors, packed by lower rows (``pack_lower_rows``), in
@@ -82,15 +85,25 @@ def bits_to_normal(b1: torch.Tensor, b2: torch.Tensor,
 
 
 def philox_normals(seed: int, shape: Tuple[int, int, int], dtype=torch.float32,
-                   device="cpu") -> torch.Tensor:
-    """(S, T, D) normals of the kernel's stream: counter (s, t, d, 0)."""
+                   device="cpu", row_offset: int = 0) -> torch.Tensor:
+    """(S, T, D) normals of the kernel's stream: counter (row_offset + s,
+    t, d, 0)."""
+    _check_offset(row_offset, shape[0])
     s, t, d = (torch.arange(n, dtype=torch.int64, device=device)
                for n in shape)
+    s = s + row_offset
     c0 = s[:, None, None].expand(shape)
     c1 = t[None, :, None].expand(shape)
     c2 = d[None, None, :].expand(shape)
     b = philox4x32(c0, c1, c2, torch.zeros_like(c0), seed)
     return bits_to_normal(b[0], b[1], dtype)
+
+
+def _check_offset(row_offset: int, rows: int):
+    """The counter's row word is 32 bits."""
+    if row_offset < 0 or row_offset + rows > 2 ** 32:
+        raise ValueError(f"rows {row_offset}..{row_offset + rows} leave the "
+                         "32-bit row counter")
 
 
 def draw_seed(generator: Optional[torch.Generator]) -> int:
@@ -192,7 +205,8 @@ def rollout_reference(kparams: KernelParams, z: torch.Tensor,
                       q_sqrt: Optional[torch.Tensor], q: torch.Tensor,
                       x0: torch.Tensor, controls: torch.Tensor,
                       num_samples: int, *, noise: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None,
+                      row_offset: int = 0):
     """Plain PyTorch rollout: a loop over T, batched over S and D.  Same
     signature and arithmetic as ``rollout``.  Returns (xs, var_tot), each
     (S, T, D)."""
@@ -201,7 +215,7 @@ def rollout_reference(kparams: KernelParams, z: torch.Tensor,
     s, d = num_samples, x0.shape[0]
     if noise is None:
         noise = philox_normals(draw_seed(generator), (s, controls.shape[0], d),
-                               z.dtype, z.device)
+                               z.dtype, z.device, row_offset)
     shared = _prepare(kparams, z, lm_inv, q_sqrt) + (u_val, q, x0)
     per_sample = [None if t is None else t.expand((s,) + t.shape)
                   for t in shared]
@@ -213,7 +227,8 @@ def rollout_reference_batched(kparams: KernelParams, z: torch.Tensor,
                               q_sqrt: Optional[torch.Tensor], q: torch.Tensor,
                               x0: torch.Tensor, controls: torch.Tensor, *,
                               noise: Optional[torch.Tensor] = None,
-                              generator: Optional[torch.Generator] = None):
+                              generator: Optional[torch.Generator] = None,
+                              row_offset: int = 0):
     """Plain version of ``rollout_batched``: every parameter has a leading
     sample axis S.  With the same parameters for every sample it equals
     ``rollout_reference`` bit for bit (same arithmetic, same Philox counter
@@ -224,7 +239,7 @@ def rollout_reference_batched(kparams: KernelParams, z: torch.Tensor,
     if noise is None:
         noise = philox_normals(draw_seed(generator),
                                (s, controls.shape[0], x0.shape[1]), z.dtype,
-                               z.device)
+                               z.device, row_offset)
     return _reference_steps(*_prepare(kparams, z, lm_inv, q_sqrt, True),
                             u_val, q, x0, controls, noise)
 
@@ -328,7 +343,7 @@ def _library() -> ctypes.CDLL:
         for fn in (lib.ffvd_rollout_f32, lib.ffvd_rollout_f64):
             fn.argtypes = ([_ptr] * 12 + [ctypes.c_int] * 10
                            + [ctypes.c_uint] * len(STRIDED)
-                           + [ctypes.c_uint64, _ptr])
+                           + [ctypes.c_uint64, ctypes.c_uint, _ptr])
             fn.restype = ctypes.c_int
         lib.ffvd_rollout_limits.argtypes = [ctypes.c_int, _ptr, _ptr]
         lib.ffvd_rollout_limits.restype = ctypes.c_int
@@ -369,13 +384,15 @@ def rollout(kparams: KernelParams, z: torch.Tensor, lm_inv: torch.Tensor,
             u_val: torch.Tensor, q_sqrt: Optional[torch.Tensor],
             q: torch.Tensor, x0: torch.Tensor, controls: torch.Tensor,
             num_samples: int, *, noise: Optional[torch.Tensor] = None,
-            generator: Optional[torch.Generator] = None):
+            generator: Optional[torch.Generator] = None, row_offset: int = 0):
     """S = ``num_samples`` rollouts of T = controls.shape[0] steps from x0.
 
     kparams: SE-ARD hypers (D,), (D, Din); z (M, Din); lm_inv (D, M, M)
     lower triangular; u_val (M, D); q_sqrt (D, M, M) upper triangular or
     None; q (D,); x0 (D,); controls (T, U), U may be 0; noise (S, T, D) or
-    None.  Returns (xs, var_tot), each (S, T, D), var_tot clamped at 0.
+    None; ``row_offset``: the rows' place in a larger batch (the drawn
+    noise's counter).  Returns (xs, var_tot), each (S, T, D), var_tot
+    clamped at 0.
     CUDA tensors launch the kernel (float32 or float64) as ``rollout_plan``
     says, and record the plan in ``rollout.last_plan`` and (rows, plan) in
     ``rollout.log``; CPU tensors run
@@ -383,12 +400,12 @@ def rollout(kparams: KernelParams, z: torch.Tensor, lm_inv: torch.Tensor,
     if z.device.type == "cpu":
         return rollout_reference(kparams, z, lm_inv, u_val, q_sqrt, q, x0,
                                  controls, num_samples, noise=noise,
-                                 generator=generator)
+                                 generator=generator, row_offset=row_offset)
     _check_device(z)
     _check_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls,
                   num_samples, noise)
     return _launch(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls,
-                   num_samples, noise, generator, batched=False)
+                   num_samples, noise, generator, row_offset, batched=False)
 
 
 def rollout_batched(kparams: KernelParams, z: torch.Tensor,
@@ -396,7 +413,8 @@ def rollout_batched(kparams: KernelParams, z: torch.Tensor,
                     q_sqrt: Optional[torch.Tensor], q: torch.Tensor,
                     x0: torch.Tensor, controls: torch.Tensor, *,
                     noise: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    row_offset: int = 0):
     """``rollout`` with its own parameters for each of S samples (a thinned
     SG-HMC posterior): kparams (S, D), (S, D, Din); z (S, M, Din); lm_inv
     and q_sqrt (S, D, M, M); u_val (S, M, D); q (S, D); x0 (S, D); controls
@@ -405,13 +423,14 @@ def rollout_batched(kparams: KernelParams, z: torch.Tensor,
     if z.device.type == "cpu":
         return rollout_reference_batched(kparams, z, lm_inv, u_val, q_sqrt, q,
                                          x0, controls, noise=noise,
-                                         generator=generator)
+                                         generator=generator,
+                                         row_offset=row_offset)
     _check_device(z)
     s = x0.shape[0]
     _check_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls, s,
                   noise, batched=True)
     return _launch(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls, s,
-                   noise, generator, batched=True)
+                   noise, generator, row_offset, batched=True)
 
 
 def _check_device(z: torch.Tensor):
@@ -422,7 +441,7 @@ def _check_device(z: torch.Tensor):
 
 
 def _launch(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls, s, noise,
-            generator, batched):
+            generator, row_offset, batched):
     """One launch of the kernel for S samples, shared or per-sample inputs
     (checked by the caller).  Raises when the launch fails."""
     dtype, device = z.dtype, z.device
@@ -431,6 +450,7 @@ def _launch(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls, s, noise,
     itemsize = z.element_size()
     max_threads, smem_optin = kernel_limits(device, itemsize)
     plan = rollout_plan(d, m, d + cu, itemsize, smem_optin, max_threads)
+    _check_offset(row_offset, s)
     seed = draw_seed(generator) if noise is None else 0
     args = kernel_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls,
                          s, batched)
@@ -445,7 +465,8 @@ def _launch(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls, s, noise,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*ptrs, xs.data_ptr(), vs.data_ptr(), s, t_len, d, m, cu,
                  plan.cluster, plan.dims_per_cta, plan.threads,
-                 plan.smem_bytes, int(plan.resident), *strides, seed, stream)
+                 plan.smem_bytes, int(plan.resident), *strides, seed,
+                 row_offset, stream)
     if err != 0:
         raise RuntimeError(f"rollout kernel launch failed ({plan}): "
                            + _LAUNCH_ERRORS.get(err, f"CUDA error {err}"))

@@ -5,7 +5,9 @@ different lengths are padded to a common N with a transition mask (the
 masked ELBO normalises each by its real length), their parameters are
 stacked on a leading axis, and ``BatchedTrainer`` (``parallel/sharding.py``)
 runs the full training protocol over that axis with the data batched too:
-one step's launches train every model.
+one step's launches train every model.  On a ('dp', 'ep') mesh the datasets
+split over 'dp' and each model's D per-dim GPs over 'ep', as in
+``MultiChainTrainer`` (``ffvd_tpu/parallel/multidataset.py:7-8``).
 """
 
 from __future__ import annotations
@@ -16,14 +18,16 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ffvd_tpu_torch.config import FFVDConfig
 from ffvd_tpu_torch.data import create_dataset, load_warmstart
 from ffvd_tpu_torch.inference.trainer import Trainer, TrainState
 from ffvd_tpu_torch.model.params import (GPSSMParams, SSMData,
                                          init_params_from_warmstart)
-from ffvd_tpu_torch.parallel.sharding import (BatchedTrainer, member,
-                                              stack_members)
+from ffvd_tpu_torch.parallel.distributed import all_sum
+from ffvd_tpu_torch.parallel.sharding import (MeshBatchedTrainer, axis_index,
+                                              member, stack_members)
 
 
 def pad_dataset(data: SSMData, params: GPSSMParams, n_pad: int
@@ -101,15 +105,18 @@ def _resize_inducing(params: GPSSMParams, m: int, seed: int) -> GPSSMParams:
     return dataclasses.replace(params, z=z, u=u)
 
 
-class MultiDatasetTrainer(BatchedTrainer):
+class MultiDatasetTrainer(MeshBatchedTrainer):
     """The FFVD protocol over a stacked-dataset axis, the data batched too
-    (``ffvd_tpu/parallel/multidataset.py:110-187``)."""
+    (``ffvd_tpu/parallel/multidataset.py:110-187``).  With a ``mesh`` this
+    process trains datasets [m0, m1) over 'dp' (``stacked_data`` is the
+    whole stack) and its block of each model's latent dims over 'ep'."""
 
     axis_name = "dataset"
 
-    def __init__(self, cfg: FFVDConfig, stacked_data: SSMData, pg_fn=None):
+    def __init__(self, cfg: FFVDConfig, stacked_data: SSMData, mesh=None,
+                 pg_fn=None):
         super().__init__(cfg, stacked_data, stacked_data.y.shape[0],
-                         data_axis=True, pg_fn=pg_fn)
+                         data_axis=True, mesh=mesh, pg_fn=pg_fn)
 
     @torch.no_grad()
     def evaluate(self, state: TrainState, datasets, lens,
@@ -121,12 +128,20 @@ class MultiDatasetTrainer(BatchedTrainer):
         ``lens``: the real lengths from ``stack_datasets``.  Each model's
         params are un-padded to x[:n+1] and evaluated through a single
         ``Trainer``'s ``collect_posterior``, so each dataset is one rollout
-        launch on the card.  ``generator`` draws the rollout seeds,
-        ``thin_generator`` a sampler case's thinning normals; ``noise``, one
-        (S, T, D) tensor per dataset, replaces the rollout noise.  For an
-        SG-HMC case the thinning restarts its preconditioner, as in JAX."""
+        launch on the card.  Dataset i draws from its own generators, seeded
+        by the i-th draws of ``generator`` (the rollout seeds) and
+        ``thin_generator`` (a sampler case's thinning normals), as JAX
+        splits its key per dataset; ``noise``, one (S, T, D) tensor per
+        dataset, replaces the rollout noise.  For an SG-HMC case the
+        thinning restarts its preconditioner, as in JAX.
+
+        ``datasets`` and ``lens`` may stop short of the stack: the first
+        ones are evaluated.  On a mesh they are the whole lists; the first
+        process of each 'ep' group evaluates its datasets with all D dims,
+        and every process returns the whole dict."""
         from ffvd_tpu_torch.eval.rollout import (collect_posterior,
                                                  predict_summary, rmse_nll)
+        from ffvd_tpu_torch.ops.rollout import draw_seed
         if self.has_sghmc:
             warnings.warn(
                 "MultiDatasetTrainer.evaluate restarts the SGHMC "
@@ -135,20 +150,37 @@ class MultiDatasetTrainer(BatchedTrainer):
                 "reference eval semantics run each dataset through a single "
                 "Trainer whose state carries the trained preconditioner.",
                 stacklevel=2)
-        results = {}
-        for i, (ds, n) in enumerate(zip(datasets, lens)):
-            p = member(state.params, i)
+        def per_dataset(g):
+            if g is None:
+                return [None] * len(datasets)
+            return [torch.Generator(device=g.device).manual_seed(
+                draw_seed(g)) for _ in datasets]
+
+        gens, thin_gens = per_dataset(generator), per_dataset(thin_generator)
+        params = self.whole_dims(state.params)
+        dt, dev = params.x.dtype, params.x.device
+        as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+        m0, m1 = self.place.members
+        # (rmse, nll) of every dataset; each filled by one process.
+        table = torch.zeros((len(datasets), 2), dtype=torch.float64,
+                            device=dev)
+        for i in (range(m0, min(m1, len(datasets)))
+                  if axis_index(self.mesh, "ep") == 0 else ()):
+            ds, n = datasets[i], lens[i]
+            p = member(params, i - m0)
             p = dataclasses.replace(p, x=p.x[:n + 1])
-            dt, dev = p.x.dtype, p.x.device
-            as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
             tr = Trainer(self.cfg, SSMData(y=as_t(ds.y_train),
                                            control=as_t(ds.control)))
             xs, vs, _ = collect_posterior(
-                tr, tr.init_state(p), ds.n_test, generator=generator,
-                thin_generator=thin_generator,
+                tr, tr.init_state(p), ds.n_test, generator=gens[i],
+                thin_generator=thin_gens[i],
                 noise=None if noise is None else noise[i])
             py, pv, _ = predict_summary(p, xs, vs, self.cfg.emission_noise)
             rmse, nll = rmse_nll(as_t(ds.y_test), py, pv, ds.y_train_std,
                                  horizon=horizon)
-            results[ds.name] = {"rmse": float(rmse), "nll": float(nll)}
-        return results
+            table[i, 0], table[i, 1] = float(rmse), float(nll)
+        if self.mesh is not None:
+            all_sum(table, dist.group.WORLD)
+        return {ds.name: {"rmse": float(table[i, 0]),
+                          "nll": float(table[i, 1])}
+                for i, ds in enumerate(datasets)}

@@ -17,7 +17,9 @@ fp64 particle-Gibbs sweep on the card equals the CPU's with the same
 injected draws (identical resampling indices, x within rtol 1e-9), its
 recursion and backtrack under ``set_sync_debug_mode("error")``; and the
 LinearK rollout on the card equals the CPU's (rtol 1e-9) with no launch.
-A ds64 C4 step (the collapsed segment in float64) equals the CPU's.
+A ds64 C4 step (the collapsed segment in float64) equals the CPU's.  A
+launch with a Philox ``row_offset`` gives the matching rows of a whole
+launch, bit for bit.
 """
 
 import pytest
@@ -229,6 +231,43 @@ def test_per_sample_kernel_with_identical_samples_is_the_shared_kernel(cuda):
         generator=torch.Generator().manual_seed(2))
     torch.cuda.synchronize()
     assert torch.equal(xs, xb) and torch.equal(vs, vb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_offset_launch_is_the_whole_launchs_rows(cuda, dtype, per_sample):
+    """A launch of rows [r0, r1) with ``row_offset=r0`` (one launch a
+    process of a sharded run) gives rows r0..r1 of one launch of all rows,
+    bit for bit, and equals the plain version with the same offset."""
+    s, t_len = 8, 12
+    seeded = lambda: torch.Generator().manual_seed(5)
+    if per_sample:
+        args = _batched_inputs(cuda, dtype, 4, 37, t_len, s)
+        cut = lambda a, r0, r1: {k: (KernelParams(v.log_variance[r0:r1],
+                                                  v.log_lengthscales[r0:r1])
+                                     if k == "kparams" else
+                                     v if k == "controls" else v[r0:r1])
+                                 for k, v in a.items()}
+        whole = ro.rollout_batched(**args, generator=seeded())
+        launch = lambda r0, r1, fn=ro.rollout_batched: fn(
+            **cut(args, r0, r1), generator=seeded(), row_offset=r0)
+        plain = ro.rollout_reference_batched
+    else:
+        args = _inputs(cuda, dtype, d=4, m=37, t_len=t_len)
+        whole = ro.rollout(*args, s, generator=seeded())
+        launch = lambda r0, r1, fn=ro.rollout: fn(
+            *args, r1 - r0, generator=seeded(), row_offset=r0)
+        plain = ro.rollout_reference
+    for r0, r1 in [(0, 4), (4, 8), (3, 6)]:
+        xs, vs = launch(r0, r1)
+        torch.cuda.synchronize()
+        assert torch.equal(xs, whole[0][r0:r1])
+        assert torch.equal(vs, whole[1][r0:r1])
+        xr, vr = launch(r0, r1, plain)
+        tol = (dict(rtol=1e-9, atol=1e-12) if dtype == torch.float64
+               else dict(rtol=1e-4, atol=1e-5))
+        torch.testing.assert_close(xs[:, :10], xr[:, :10], **tol)
+        torch.testing.assert_close(vs[:, :10], vr[:, :10], **tol)
 
 
 def test_kernel_wrapper_rejects_bad_inputs(cuda):

@@ -81,13 +81,15 @@ def stack_draws(per_chain):
     return out
 
 
-def jax_multichain(kw, leaves, y, control, n_iter, seed=7):
+def jax_multichain(kw, leaves, y, control, n_iter, seed=7, mesh=None):
     """JAX's MultiChainTrainer.run over ``leaves`` (chain-stacked numpy),
-    one chunk, with the port's injected draws of every iteration."""
+    one chunk, with the port's injected draws of every iteration; on
+    ``mesh`` (a JAX ('dp', 'ep') mesh) when given."""
     cfg = JConfig(**kw)
     c = leaves["x"].shape[0]
     mct = JMultiChain(cfg, JSSMData(y=jnp.asarray(y),
-                                    control=jnp.asarray(control)), c)
+                                    control=jnp.asarray(control)), c,
+                      mesh=mesh)
     params = jax_deep_params(leaves)
     mct.base._params0 = jax.tree.map(lambda a: a[0], params)
     state = mct.init_state(params)
