@@ -24,8 +24,8 @@ that each print one JSON line:
    step-1 residuals of a 65,536-sample rollout (with the phase's seconds);
 4. the main path in fp32: ``FFVDModel(FFVDConfig("ballbeam", case=4))`` on
    cuda, ``fit()`` for the protocol's 4000 iterations, ``evaluate()``;
-4b. the SG-HMC paths in fp32: ballbeam C5 for 100 iterations and C2 for
-   20, each then ``evaluate()`` (thinning, per-sample q(U), one launch),
+4b. the SG-HMC paths in fp32: ballbeam C5 for 70 iterations (the
+   64-slot window wrapped) and C2 for 20, each then ``evaluate()`` (thinning, per-sample q(U), one launch),
    with the evaluation split into its stages;
 4c. the particle-Gibbs path in fp32: ballbeam C6 (P=100) for 20
    iterations and ``evaluate()``, the sweep timed and split, one sweep's
@@ -34,7 +34,7 @@ that each print one JSON line:
 4d. the LinearK path in fp32: ballbeam C4 with ``kernel_type="LinearK"``
    for 20 iterations and ``evaluate()`` (the torch recursion, no kernel);
 4e. the deep path in fp32: flutter C4 with ``n_layers=2`` (one hidden
-   layer of the head's shapes) for 500 iterations and ``evaluate()`` (the
+   layer of the head's shapes) for 250 iterations and ``evaluate()`` (the
    deep torch recursion, no kernel);
 4f. the window path in fp32: the kink benchmark at N=5000 from a cold
    start, C4 with ``minibatch_size=256`` for 200 iterations, the full
@@ -54,7 +54,7 @@ that each print one JSON line:
 5d. 3 fp64 deep C4 iterations with injected inter-layer normals, and the
    deep rollout with injected noise, cuda against CPU;
 4i. the chain axis in fp32: ballbeam C4 as 8 chains of one
-   ``MultiChainTrainer`` for 500 iterations (aggregate chain-iterations/s
+   ``MultiChainTrainer`` for 250 iterations (aggregate chain-iterations/s
    beside phase 4's single-chain rate, split-R̂ over the tail), its 8×10
    ``multichain_moments`` rollouts in one launch, kernels and host syncs
    of 8 chains against one; C5 as 4 chains for 20 iterations, thinned on
@@ -77,6 +77,18 @@ that each print one JSON line:
    M=512 and their ``evaluate()``; 7c gloo, 4 ranks, sp=4: kink N=5000 C4
    in fp64 against one process, fp32 timed; 7d the same on NCCL over 4
    cards, or ``{"phase": "7d", "ran": false, "cards": n}``;
+8a. checkpoints of a meshed run, in 7b's 4 gloo ranks sharing the card,
+   dp=2 × ep=2, 8 ballbeam C4 chains fp32, 10 iterations, a checkpoint, a
+   restore into a fresh state, 10 more: bit-equal to 20 uninterrupted meshed
+   iterations, one file a checkpoint, and the file restored into one
+   process is the state the mesh restored, bit for bit;
+8b. the same ranks with sp=4: kink N=5000 C4 on windows of 256, fp64 for
+   10 iterations within rtol 1e-10 of one process's windowed ``Trainer``,
+   fp32 timed beside one process;
+8c. ``scripts/bench_torch.py``'s measurement in this process at
+   ``--quick``, its JSON line printed, and its rollout launches;
+8d. the eight examples of ``examples_torch/`` in this process at
+   ``--quick``, each one's rollout launches;
 6. kernel timing with CUDA events at S=10 and S=64, shared and per-sample
    inputs, with the launch plan; fp32 at 80 per-sample rows and at M=512
    (global plan); and one ``{"kernels": [...]}`` line.
@@ -105,7 +117,7 @@ REPORT = {}
 S, T, HORIZON = 10, 500, 30
 ANCHOR_NLL = -2.410755          # ballbeam C4 warm-start nll (fp64, golden)
 # Phase 4i's depth, short enough to leave the script's time to later phases.
-CHAIN_ITERATIONS = 500
+CHAIN_ITERATIONS = 250
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; FLOP/s for
 # fp32 outside the tensor cores (TF32 would lose precision), and for fp64
 # on the tensor cores (DMMA runs in full fp64).  ≈88% of the rollout's work
@@ -619,12 +631,12 @@ def _sampler_path(torch, ro, card, case, iterations):
 
 def phase_sampler_paths(torch, ro, card):
     """Phase 4b: the SG-HMC path in fp32 at full width: ballbeam C5 (the
-    kernel hypers sampled, collapsed q(U) per thinned sample) for 100
-    iterations, the window full after 64; then C2 (hypers and U sampled,
-    no q_sqrt) for 20.  Depth is cut from the protocol's 4000 iterations
-    to stay inside the run's time limit."""
+    kernel hypers sampled, collapsed q(U) per thinned sample) for 70
+    iterations, the window full after 64 and wrapped; then C2 (hypers and U
+    sampled, no q_sqrt) for 20.  Depth is cut from the protocol's 4000
+    iterations to stay inside the run's time limit."""
     t0 = time.time()
-    c5 = _sampler_path(torch, ro, card, 5, 100)
+    c5 = _sampler_path(torch, ro, card, 5, 70)
     c2 = _sampler_path(torch, ro, card, 2, 20)
     emit("sampler_paths", C5=c5, C2=c2, seconds=time.time() - t0)
     return {"C5": c5, "C2": c2}
@@ -810,7 +822,7 @@ def phase_linear_path(torch, ro, card):
 def phase_deep_path(torch, ro, card):
     """Phase 4e: flutter C4 with a deep transition (``n_layers=2``) in fp32
     at full width (D=4, M=100, N=512, Din=5, one hidden layer of the same
-    shapes): ``fit(500)`` (the protocol runs 4000) and ``evaluate()``, with
+    shapes): ``fit(250)`` (the protocol runs 4000) and ``evaluate()``, with
     the launch count set to 0 just before and read just after.  The deep
     rollout is the torch recursion, so no kernel launches.  The training
     nll is doubly stochastic, so its fall is read on the means of the
@@ -818,7 +830,7 @@ def phase_deep_path(torch, ro, card):
     from ffvd_tpu_torch.api import FFVDModel
     from ffvd_tpu_torch.config import FFVDConfig
     cfg = FFVDConfig(dataset="flutter", case=4, n_layers=2)
-    iterations = 500
+    iterations = 250
     ro.rollout.launches = 0          # this path starts here
     model = FFVDModel(cfg, device="cuda")
     check(model.dtype == torch.float32, f"deep dtype {model.dtype}")
@@ -1153,7 +1165,7 @@ def _pooled_metrics(chains, ds):
 def phase_multichain_path(torch, ro, card, single):
     """Phase 4i: the chain axis in fp32.  Ballbeam C4 as 8 chains of one
     ``MultiChainTrainer`` (warm start perturbed by 1e-3·N(0,1) per chain)
-    for 500 iterations, then ``multichain_moments``: all 8×10 rollouts in
+    for 250 iterations, then ``multichain_moments``: all 8×10 rollouts in
     one launch.  Kernels and host syncs of 10 profiled iterations, 8 chains
     against one.  Then C5 as 4 chains for 20 iterations, thinned on the
     batched gradient, and its 4×10 rollouts in one per-sample launch.  The
@@ -1860,17 +1872,19 @@ def _check_dp_ep(torch, ranks, singles, what, on_card=True):
     return rep
 
 
-def _check_sp(torch, ranks, singles, what, on_card=True):
-    rels = [_diff(torch, r["kink_fp64"][0], singles["kink_fp64"], 1e-10,
-                  1e-12) for r in ranks]
-    rep = {"kink_fp64": {"max_rel_diff_vs_one_process": max(x[0]
-                                                             for x in rels),
-                         "within_rtol_1e-10": all(x[1] for x in rels),
-                         "seconds": [r["kink_fp64"][1] for r in ranks]},
-           "kink_fp32_timed": [r["kink_fp32_timed"][0]["timed"]
-                               for r in ranks],
-           "kink_fp32_one_process": singles["kink_fp32_timed"]["timed"]}
-    check(all(x[1] for x in rels), f"{what} kink: {rep['kink_fp64']}")
+def _check_sp(torch, ranks, singles, what, on_card=True, prefix="kink"):
+    """7c's (and, ``prefix="kink_window"``, 8b's) checks: the jobs
+    ``<prefix>_fp64`` and ``<prefix>_fp32_timed`` of the ranks against the
+    one-process runs."""
+    f64, f32 = f"{prefix}_fp64", f"{prefix}_fp32_timed"
+    rels = [_diff(torch, r[f64][0], singles[f64], 1e-10, 1e-12)
+            for r in ranks]
+    rep = {f64: {"max_rel_diff_vs_one_process": max(x[0] for x in rels),
+                 "within_rtol_1e-10": all(x[1] for x in rels),
+                 "seconds": [r[f64][1] for r in ranks]},
+           f32: [r[f32][0]["timed"] for r in ranks],
+           f"{prefix}_fp32_one_process": singles[f32]["timed"]}
+    check(all(x[1] for x in rels), f"{what} {prefix}: {rep[f64]}")
     return rep
 
 
@@ -1894,7 +1908,8 @@ def phase_mesh(torch, card, device="cuda:0"):
     7c: gloo, 4 ranks sharing cuda:0, sp=4: kink N=5000 C4 full batch,
     fp64 for 10 iterations within rtol 1e-10 of the one-process
     ``Trainer``; fp32 timed beside the one-process rate.  7d: 7b and 7c
-    over NCCL on 4 cards when the machine has them.  Timings of ranks that
+    over NCCL on 4 cards when the machine has them.  8a and 8b
+    (``_check_8``) run in 7b's gloo ranks.  Timings of ranks that
     share one card measure correctness and overhead, not scaling.
     ``device="cpu"`` rehearses it on the host (gloo throughout, no 7d)."""
     from ffvd_tpu_torch.parallel.distributed import spawn_local
@@ -1929,17 +1944,19 @@ def phase_mesh(torch, card, device="cuda:0"):
     singles = {name: jobs_in_turn(dev, [(name, kind, dict(spec, mesh=None))]
                                   )[name][0]
                for name, kind, spec in plan_b[:3] + plan_c}
-    # 7b, 7c: gloo ranks sharing the card, in one set of processes
+    # 7b, 7c, 8a, 8b: gloo ranks sharing the card, in one set of processes
+    plan_8, ck, kink = _plan_8()
     t0 = time.time()
     ranks = spawn_local(jobs_in_turn, 4, "gloo", device,
-                        args=(plan_b + plan_c,), timeout=600)
+                        args=(plan_b + plan_c + plan_8,), timeout=600)
     bc_s = time.time() - t0
     for key, check_fn in (("7b", _check_dp_ep), ("7c", _check_sp)):
         out[key] = {"backend": "gloo", "ranks": 4, "cards": 1,
-                    "seconds_7b_and_7c": bc_s,
+                    "seconds_7b_7c_8a_8b": bc_s,
                     **check_fn(torch, ranks, singles, key,
                                dev.type == "cuda")}
         emit(f"mesh_{key}", card=card, **out[key])
+    _check_8(torch, ranks, ck, kink, card, dev)
     # 7d: NCCL over 4 cards
     n = torch.cuda.device_count() if dev.type == "cuda" else 0
     if n >= 4:
@@ -1958,6 +1975,163 @@ def phase_mesh(torch, card, device="cuda:0"):
                                      ["launches_by_rank"]),
         "mesh_gloo_dp2ep2_six_m512": sum(out["7b"]["six_m512"]
                                          ["launches_by_rank"])}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: checkpoints of a meshed run, windows over 'sp', the benchmark
+# script and the examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("01_quickstart", "02_all_datasets_one_jit",
+            "04_synthetic_cold_start", "05_multidim_emission",
+            "06_minibatch_long_sequence", "07_deep_transition",
+            "08_ensemble_calibration", "09_particle_gibbs_c6")
+
+
+# 8a: one process continuing a restored fp32 state against the dp=2 × ep=2
+# mesh continuing it, 10 iterations apart only in the order of the sums
+# over 'ep'.  Read at 1.36e-4 (max relative difference, trace and state) on
+# an H100 80GB HBM3 at 700 W in two runs; the limit leaves 7× room.
+CONTINUATION_RTOL = 1e-3
+
+
+def _plan_8():
+    """8a's and 8b's jobs, run in 7b's set of 4 gloo ranks: (the plan,
+    8a's checkpoint spec, the kink specs by name)."""
+    import tempfile
+    chains = _chain_spec("ballbeam", 8, 4, "float32", 20, mesh=(2, 2))
+    ck = dict(chains, trainer="chains", mode="resume", first=10,
+              dir=tempfile.mkdtemp(prefix="ffvd_ckpt_"))
+    kink = {"kink_window_fp64": _kink_spec("float64", 10, mesh=(4,),
+                                           axis="sp"),
+            "kink_window_fp32_timed": _kink_spec("float32", 2, timed=20,
+                                                 mesh=(4,), axis="sp")}
+    for spec in kink.values():
+        spec["cfg"] = dict(spec["cfg"], minibatch_size=256)
+    plan = [("whole_8a", "chains", chains), ("ck_8a", "checkpoint", ck)] + [
+        (name, "sequence", spec) for name, spec in kink.items()]
+    return plan, ck, kink
+
+
+def _check_8(torch, ranks, ck, kink, card, dev):
+    """Phases 8a and 8b on the results of 7b's 4 gloo ranks sharing the
+    card.
+
+    8a: dp=2 × ep=2, 8 ballbeam C4 chains in fp32: 10 iterations through
+    ``run_with_checkpoints``, a restore into a fresh state with another
+    generator, 10 more, bit-equal to 20 uninterrupted meshed iterations
+    (trace and whole state), one file a checkpoint; the same file restored
+    into one process on the card is the state the mesh restored, bit for
+    bit, and its 10 more iterations stay within ``CONTINUATION_RTOL`` of
+    the mesh's.  8b: sp=4, kink N=5000 C4 from a cold start on windows of 256
+    (``minibatch_size``): fp64 for 10 iterations within rtol 1e-10 of one
+    process's windowed ``Trainer`` with the same generator, then fp32
+    timed beside one process timed alike."""
+    import shutil
+
+    from ffvd_tpu_torch.parallel.rank_jobs import checkpoint_job, sequence_job
+    files = ["ckpt_000000010.pt", "ckpt_000000020.pt"]
+    whole = [r["whole_8a"][0] for r in ranks]
+    got = [r["ck_8a"][0] for r in ranks]
+    bit = [_diff(torch, g, w, 0.0, 0.0)[2] and torch.equal(g["trace"],
+                                                          w["trace"])
+           for g, w in zip(got, whole)]
+    one = checkpoint_job(dev, dict(ck, mode="restore", mesh=None))
+    shutil.rmtree(ck["dir"], ignore_errors=True)
+    restored_equal = (set(one["restored"]) == set(got[0]["restored"])
+                      and all(torch.equal(v, got[0]["restored"][k])
+                              for k, v in one["restored"].items()))
+    cont = _diff(torch, {"trace": one["trace"], "state": one["state"]},
+                 {"trace": whole[0]["trace"][10:],
+                  "state": whole[0]["state"]}, 0.0, 0.0)[0]
+    a = {"backend": "gloo", "ranks": 4, "cards": 1, "mesh": [2, 2],
+         "chains": 8, "precision": "fp32", "saved_at": 10, "resumed_to": 20,
+         "resume_bit_equal_by_rank": bit,
+         "files_by_rank": [g["files"] for g in got],
+         "one_process_restore_bit_equal": restored_equal,
+         "one_process_continuation_max_rel_diff": cont,
+         "seconds": [r["ck_8a"][1] for r in ranks]}
+    emit("mesh_checkpoint_8a", card=card, **a)
+    check(all(bit) and all(g["files"] == files for g in got)
+          and restored_equal and cont <= CONTINUATION_RTOL,
+          f"8a: meshed checkpoint resume: {a}")
+    singles = {name: sequence_job(dev, dict(spec, mesh=None))
+               for name, spec in kink.items()}
+    b = {"backend": "gloo", "ranks": 4, "cards": 1, "N": 5000,
+         "window": 256, **_check_sp(torch, ranks, singles, "8b",
+                                    prefix="kink_window")}
+    emit("mesh_window_8b", card=card, **b)
+
+
+def _load_script(path):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_bench_quick(torch, ro, card, device="cuda"):
+    """Phase 8c: ``scripts/bench_torch.py``'s measurement in this process
+    at ``--quick`` (a few iterations of each workload), its JSON line
+    printed; the rollout launches of its two ``evaluate()`` calls.
+    ``device="cpu"`` rehearses it on the host (no launches)."""
+    bench = _load_script(ROOT / "scripts" / "bench_torch.py")
+    on_card = device == "cuda"
+    ro.rollout.launches = 0          # this path starts here
+    t0 = time.time()
+    line = bench.measure(device, quick=True)
+    launches = ro.rollout.launches
+    print(json.dumps(line), flush=True)
+    numbers = [line["value"]] + [v for v in line["extra"].values()
+                                 if isinstance(v, float)]
+    emit("bench_quick_8c", card=card, launches=launches,
+         seconds=time.time() - t0)
+    check(line["extra"]["platform"] == ("gpu" if on_card else "cpu")
+          and all(math.isfinite(v) for v in numbers)
+          and launches == (2 if on_card else 0),
+          f"8c: bench_torch --quick: {line}, {launches} launches")
+    return launches
+
+
+def phase_examples_quick(torch, ro, card, device="cuda"):
+    """Phase 8d: the eight examples of ``examples_torch/`` in this
+    process at ``--quick``, on the card, in a scratch directory (example
+    01 writes a results file); each one's rollout launches and the tail of
+    what it printed.  ``device="cpu"`` rehearses it on the host."""
+    import contextlib
+    import io
+    import os
+    import runpy
+    import tempfile
+    out, launches = {}, {}
+    argv, cwd = sys.argv, os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for name in EXAMPLES:
+                path = ROOT / "examples_torch" / f"{name}.py"
+                sys.argv = [str(path), "--quick"] + (
+                    ["--cpu"] if device == "cpu" else [])
+                buf = io.StringIO()
+                ro.rollout.launches = 0      # this example's path
+                t0 = time.time()
+                with contextlib.redirect_stdout(buf):
+                    runpy.run_path(str(path), run_name="__main__")
+                launches[name] = ro.rollout.launches
+                out[name] = {"seconds": time.time() - t0,
+                             "launches": launches[name],
+                             "printed": buf.getvalue().splitlines()[-3:]}
+        finally:
+            sys.argv = argv
+            os.chdir(cwd)
+    emit("examples_quick_8d", card=card, **out)
+    on_card = device == "cuda"
+    check(all(v["printed"] for v in out.values())
+          and (launches["01_quickstart"] >= 1) == on_card
+          and launches["02_all_datasets_one_jit"] == (6 if on_card else 0),
+          f"8d: examples: {out}")
+    return launches
 
 
 def phase_timing(torch, ro):
@@ -2106,6 +2280,9 @@ def main() -> int:
     timed("fp64_segment", phase_fp64_segment, torch)
     timed("fp64_batched", phase_fp64_batched, torch)
     mesh = timed("mesh", phase_mesh, torch, card)
+    bench_launches = timed("bench_quick", phase_bench_quick, torch, ro, card)
+    example_launches = timed("examples_quick", phase_examples_quick, torch,
+                             ro, card)
     timing = timed("timing", phase_timing, torch, ro)
     emit("phase_seconds", **seconds, total=time.time() - t0)
 
@@ -2127,7 +2304,9 @@ def main() -> int:
                             "ensemble_C4x2": ensemble}.items()},
             "multichain_C4x8": multichain["C4x8"],
             "multichain_C5x4": multichain["C5x4"],
-            "six_datasets_m512": six, **mesh["launches"]},
+            "six_datasets_m512": six, **mesh["launches"],
+            "bench_torch_quick": bench_launches,
+            **{f"example_{k}": v for k, v in example_launches.items()}},
         "fp32_s80_per_sample": {k: timing["fp32_s80_per_sample"][k] for k in
                                 ("ms", "plain_ms", "bound_ms", "bound_by")},
         "fp32_m512_global": {k: timing["fp32_m512_global"][k] for k in

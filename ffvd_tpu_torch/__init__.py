@@ -17,6 +17,7 @@ from ffvd_tpu_torch.model.elbo import elbo_terms, negative_elbo
 from ffvd_tpu_torch.model.params import (GPSSMParams,
                                          init_params_from_warmstart,
                                          params_from_numpy, params_to_numpy)
+from ffvd_tpu_torch.version import __version__
 
 __all__ = [
     "FFVDConfig",
@@ -29,4 +30,5 @@ __all__ = [
     "negative_elbo",
     "elbo_terms",
     "Trainer",
+    "__version__",
 ]

@@ -153,6 +153,13 @@ class TrainState:
     window: Leaves = dataclasses.field(default_factory=dict)
     window_count: int = 0
 
+    def adam_paths(self) -> List[str]:
+        """The paths of the Adam leaves, in the optimizer's order."""
+        if self.adam is None:
+            return []
+        by_id = {id(v): k for k, v in self.params.leaves().items()}
+        return [by_id[id(p)] for p in self.adam.param_groups[0]["params"]]
+
 
 class Trainer:
     """Runs the FFVD training protocol for one config.
@@ -162,6 +169,8 @@ class Trainer:
     which overrides the objective and the few hooks that index members."""
 
     lead: Tuple[int, ...] = ()
+    # The mesh of a run split over processes (parallel/), None in one.
+    mesh = None
 
     def __init__(self, cfg: FFVDConfig, data: SSMData,
                  pg_fn: Optional[Callable] = None):
@@ -536,6 +545,10 @@ class Trainer:
     def _gather_trace(self, nlls: torch.Tensor) -> torch.Tensor:
         """A chunk's nll trace of every member, from this process's."""
         return nlls
+
+    def _whole_state(self, state: TrainState) -> TrainState:
+        """The state one process would hold, from this process's share."""
+        return state
 
     def _share_tree(self, tree: Leaves) -> Leaves:
         return {k: self._share(v, k) for k, v in tree.items()}

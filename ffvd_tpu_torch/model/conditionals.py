@@ -41,6 +41,18 @@ def kernel_precal(kernel_type: str, kparams: KernelParams, z: torch.Tensor,
     return Precal(lm=lm, lm_inv=lm_inv)
 
 
+def conditional(kernel_type: str, kparams: KernelParams, z: torch.Tensor,
+                u: torch.Tensor, xnew: torch.Tensor,
+                q_sqrt: Optional[torch.Tensor] = None,
+                jitter: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whitened conditional on a fresh factorisation of Kmm, the
+    reference's ``conditional`` (conditionals_multi_output.py:73-120):
+    ``kernel_precal`` then ``whitened_conditional`` in one call."""
+    pre = kernel_precal(kernel_type, kparams, z, jitter)
+    return whitened_conditional(kernel_type, kparams, pre, z, u, xnew,
+                                q_sqrt=q_sqrt)
+
+
 def projection(kernel_type: str, kparams: KernelParams, pre: Precal,
                z: torch.Tensor, xnew: torch.Tensor) -> torch.Tensor:
     """A = Lm⁻¹ K(Z, X̃) for all D dims → (D, M, N).
@@ -75,6 +87,30 @@ def whitened_conditional(
         lta = q_sqrt.mT @ a                                   # Lᵀ A
         var = var + torch.sum(lta * lta, dim=1)
     return mean, var.T
+
+
+def whitened_conditional_full_cov(
+    kernel_type: str,
+    kparams: KernelParams,
+    pre: Precal,
+    z: torch.Tensor,
+    u: torch.Tensor,
+    xnew: torch.Tensor,
+    q_sqrt: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``whitened_conditional`` with the full covariance over xnew
+    (``base_conditional`` with full_cov=True,
+    conditionals_multi_output.py:37-39,60-61; no live call site uses it):
+
+        mean (N, D),  cov (D, N, N) = Knn − AᵀA (+ AᵀLLᵀA)"""
+    a = projection(kernel_type, kparams, pre, z, xnew)        # (D, M, N)
+    knn = kops.gram(kernel_type, kparams, xnew)               # (D, N, N)
+    mean = torch.einsum("dmn,md->nd", a, u)
+    cov = knn - a.mT @ a
+    if q_sqrt is not None:
+        lta = q_sqrt.mT @ a                                   # Lᵀ A
+        cov = cov + lta.mT @ lta
+    return mean, cov
 
 
 def gp_transition(

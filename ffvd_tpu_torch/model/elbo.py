@@ -141,7 +141,9 @@ def windowed_elbo_terms(params: GPSSMParams, data: SSMData,
                         ds64_refine: Optional[int] = None,
                         eps: Optional[Sequence[torch.Tensor]] = None,
                         dims: Optional[Tuple[int, int]] = None,
-                        shared: bool = True
+                        shared: bool = True,
+                        rows: Optional[Tuple[int, int]] = None,
+                        reduce: Optional[Callable] = None
                         ) -> Dict[str, torch.Tensor]:
     """Minibatch (random time window) objective, the reference's
     batch_placeholder semantics made live (``ffvd_tpu/model/elbo.py:169-
@@ -158,26 +160,55 @@ def windowed_elbo_terms(params: GPSSMParams, data: SSMData,
     window (at least 1), every window sum mask-weighted.  ``eps``: one
     (window_n, D) normal tensor per hidden layer, or None.
     ``collapse_precision``: as in ``elbo_terms``, the gram scale inside the
-    float64 segment.  ``dims``, ``shared``: as in ``elbo_terms``."""
+    float64 segment.  ``dims``, ``shared``: as in ``elbo_terms``.
+
+    ``rows`` (t0, t1), ``reduce``: this process holds transitions [t0, t1)
+    of an 'sp' split (``elbo_terms``).  The window [s, s+W) lies on one or
+    two processes' rows; each evaluates the part in its rows with the
+    one-process scales (Y_N and batch sums over all rows, the gram scale
+    Y_N/batch), and ``reduce`` sums every window sum across the
+    processes."""
     n = params.n_transitions
+    t0, t1 = (0, n) if rows is None else rows
+    red = cond.no_reduce if reduce is None else reduce
     dt, dev = params.x.dtype, params.x.device
-    mask = data.mask
-    if mask is None:
+    whole = (t0, t1) == (0, n)
+    # A block of K = min(W, t1 − t0) transitions from b = clamp(s, t0,
+    # t1 − K) covers the window's part in [t0, t1) (the window is W long,
+    # the rows t1 − t0), and a 0/1 weight keeps the block's transitions
+    # that are in the window; the start stays on the device.  The
+    # difference x_{t+1} − x_t belongs to the process that holds t (x row
+    # t1 is its read-only halo), as in the full batch.  On all rows the
+    # block is the window and no weight is needed.
+    k = min(window_n, t1 - t0)
+    s = start.reshape(()) if torch.is_tensor(start) else start
+    if whole:
+        b, inside = s, None
+    else:
+        b = torch.clamp(torch.as_tensor(s, device=dev), min=t0, max=t1 - k)
+        idx = torch.arange(k, device=dev) + b
+        inside = ((idx >= s) & (idx < s + window_n)).to(dt)
+        if eps is not None:
+            at = torch.clamp(idx - s, min=0, max=window_n - 1)
+            eps = [e.index_select(0, at) for e in eps]
+    if data.mask is None:
         y_n = torch.tensor(float(n), dtype=dt, device=dev)
         batch = torch.tensor(float(window_n), dtype=dt, device=dev)
-        mask_win = None
+        weight = inside
         gram_scale = float(n) / float(window_n)
     else:
-        mask_win = window_rows(mask, start, window_n)
-        y_n = torch.sum(mask)
-        batch = torch.clamp(torch.sum(mask_win), min=1.0)
+        weight = window_rows(data.mask, b, k)
+        if inside is not None:
+            weight = inside * weight
+        y_n = red(torch.sum(data.mask[t0:t1]))
+        batch = torch.clamp(red(torch.sum(weight)), min=1.0)
         gram_scale = y_n / batch
-    return _assemble(params, window_rows(params.x, start, window_n + 1),
-                     window_rows(data.y, start, window_n),
-                     window_rows(data.control, start, window_n), mask_win,
-                     y_n, batch, gram_scale, kernel_type, prior_type,
-                     u_collapse, jitter, emission_noise, eps,
-                     collapse_precision, dims, shared, cond.no_reduce)
+    return _assemble(params, window_rows(params.x, b, k + 1),
+                     window_rows(data.y, b, k),
+                     window_rows(data.control, b, k), weight, y_n, batch,
+                     gram_scale, kernel_type, prior_type, u_collapse, jitter,
+                     emission_noise, eps, collapse_precision, dims, shared,
+                     red)
 
 
 def windowed_negative_elbo(params: GPSSMParams, data: SSMData,

@@ -68,7 +68,6 @@ def _mesh(spec):
 
 def _state_dict(state) -> Dict[str, torch.Tensor]:
     """Every tensor of a ``TrainState`` by its ``state_pspec`` key."""
-    from ffvd_tpu_torch.parallel.sharding import _adam_paths
     out = {f"params.{k}": v for k, v in state.params.leaves().items()}
     if state.sghmc is not None:
         for f in ("xi", "g", "g2", "p"):
@@ -76,7 +75,7 @@ def _state_dict(state) -> Dict[str, torch.Tensor]:
                         for k, v in getattr(state.sghmc, f).items()})
     out.update({f"window.{k}": v for k, v in state.window.items()})
     if state.adam is not None:
-        for k, p in zip(_adam_paths(state),
+        for k, p in zip(state.adam_paths(),
                         state.adam.param_groups[0]["params"]):
             st = state.adam.state.get(p, {})
             for f in ("exp_avg", "exp_avg_sq"):
@@ -113,29 +112,69 @@ def _timed_iters(trainer, state, n: int, gen, dev) -> dict:
             "profiled_iters": m}
 
 
+def _chain_trainer(dev, spec, mesh):
+    """(``MultiChainTrainer`` over the whole stacked ``leaves``, the whole
+    params)."""
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.inference.particle_gibbs import make_pg_fn
+    from ffvd_tpu_torch.model.params import GPSSMParams, SSMData
+    from ffvd_tpu_torch.parallel.sharding import MultiChainTrainer
+    dtype = DTYPES[spec.get("dtype", "float64")]
+    cfg = FFVDConfig(**spec["cfg"])
+    data = SSMData(y=_to(spec["y"], dev, dtype),
+                   control=_to(spec["control"], dev, dtype))
+    mct = MultiChainTrainer(cfg, data, spec["leaves"]["x"].shape[0],
+                            mesh=mesh,
+                            pg_fn=make_pg_fn(cfg) if cfg.case == 6 else None)
+    return mct, GPSSMParams.from_leaves(_to(spec["leaves"], dev, dtype))
+
+
+def _dataset_trainer(dev, spec, mesh):
+    """(``MultiDatasetTrainer`` on ``spec["names"]``, the whole stacked
+    params, the real lengths)."""
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.parallel.multidataset import (MultiDatasetTrainer,
+                                                      stack_datasets)
+    dtype = DTYPES[spec.get("dtype", "float64")]
+    data, params, lens = stack_datasets(spec["names"], m=spec.get("m"),
+                                        device=dev, dtype=dtype)
+    return (MultiDatasetTrainer(FFVDConfig(**spec["cfg"]), data, mesh=mesh),
+            params, lens)
+
+
+def _sequence_trainer(dev, spec, mesh):
+    """(the 'sp' trainer of one model, or the ``Trainer`` with no mesh,
+    the params)."""
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.inference.particle_gibbs import make_pg_fn
+    from ffvd_tpu_torch.inference.trainer import Trainer
+    from ffvd_tpu_torch.model.params import GPSSMParams, SSMData
+    from ffvd_tpu_torch.parallel.sequence import SequenceShardedTrainer
+    dtype = DTYPES[spec.get("dtype", "float64")]
+    cfg = FFVDConfig(**spec["cfg"])
+    data = SSMData(y=_to(spec["y"], dev, dtype),
+                   control=_to(spec["control"], dev, dtype))
+    tr = Trainer(cfg, data, pg_fn=make_pg_fn(cfg) if cfg.case == 6 else None)
+    if mesh is not None:
+        tr = SequenceShardedTrainer(tr, mesh).trainer
+    return tr, GPSSMParams.from_leaves(_to(spec["leaves"], dev, dtype))
+
+
 def chains_job(dev, spec) -> dict:
     """``MultiChainTrainer`` over the whole ``leaves``: ``iters``
     iterations, then (``spec["moments"]``: test_len, seed) the chains'
     ``multichain_moments``.  Returns the whole trace and state, the
     moments, this process's rollout launches and, with ``spec["timed"]``
     (iterations), ``_timed_iters``'s numbers."""
-    from ffvd_tpu_torch.config import FFVDConfig
     from ffvd_tpu_torch.eval.ensemble import multichain_moments
-    from ffvd_tpu_torch.inference.particle_gibbs import make_pg_fn
-    from ffvd_tpu_torch.model.params import GPSSMParams, SSMData
     from ffvd_tpu_torch.ops import rollout as ro
     from ffvd_tpu_torch.parallel.sharding import (MultiChainTrainer,
                                                   gather_chain_state)
     dtype = DTYPES[spec.get("dtype", "float64")]
-    cfg = FFVDConfig(**spec["cfg"])
     mesh = _mesh(spec)
-    data = SSMData(y=_to(spec["y"], dev, dtype),
-                   control=_to(spec["control"], dev, dtype))
-    mct = MultiChainTrainer(cfg, data, spec["leaves"]["x"].shape[0],
-                            mesh=mesh,
-                            pg_fn=make_pg_fn(cfg) if cfg.case == 6 else None)
-    state = mct.init_state(GPSSMParams.from_leaves(
-        _to(spec["leaves"], dev, dtype)))
+    mct, params = _chain_trainer(dev, spec, mesh)
+    cfg, data = mct.cfg, mct.data
+    state = mct.init_state(params)
     gen = _generator(dev, spec.get("seed", 0))
     draws = _to(spec.get("draws"), dev, dtype)
     state, trace = mct.run(state, spec["iters"], generator=gen, draws=draws,
@@ -185,18 +224,11 @@ def datasets_job(dev, spec) -> dict:
     ``spec["m"]`` inducing points), ``iters`` iterations, then
     ``evaluate`` (``spec["eval_seed"]``) on the whole list.  Returns the
     whole trace, the whole state and the results dict."""
-    from ffvd_tpu_torch.config import FFVDConfig
     from ffvd_tpu_torch.data import create_dataset
-    from ffvd_tpu_torch.parallel.multidataset import (MultiDatasetTrainer,
-                                                      stack_datasets)
     from ffvd_tpu_torch.parallel.sharding import gather_chain_state
-    dtype = DTYPES[spec.get("dtype", "float64")]
-    cfg = FFVDConfig(**spec["cfg"])
     mesh = _mesh(spec)
     names = spec["names"]
-    data, params, lens = stack_datasets(names, m=spec.get("m"), device=dev,
-                                        dtype=dtype)
-    mdt = MultiDatasetTrainer(cfg, data, mesh=mesh)
+    mdt, params, lens = _dataset_trainer(dev, spec, mesh)
     state = mdt.init_state(params)
     gen = _generator(dev, spec.get("seed", 0))
     t0 = time.perf_counter()
@@ -225,21 +257,9 @@ def sequence_job(dev, spec) -> dict:
     iterations, on an 'sp' mesh through ``SequenceShardedTrainer`` or in
     one process.  Returns the trace and the state, and with
     ``spec["timed"]`` ``_timed_iters``'s numbers."""
-    from ffvd_tpu_torch.config import FFVDConfig
-    from ffvd_tpu_torch.inference.particle_gibbs import make_pg_fn
-    from ffvd_tpu_torch.inference.trainer import Trainer
-    from ffvd_tpu_torch.model.params import GPSSMParams, SSMData
-    from ffvd_tpu_torch.parallel.sequence import SequenceShardedTrainer
     dtype = DTYPES[spec.get("dtype", "float64")]
-    cfg = FFVDConfig(**spec["cfg"])
-    mesh = _mesh(spec)
-    data = SSMData(y=_to(spec["y"], dev, dtype),
-                   control=_to(spec["control"], dev, dtype))
-    tr = Trainer(cfg, data, pg_fn=make_pg_fn(cfg) if cfg.case == 6 else None)
-    if mesh is not None:
-        tr = SequenceShardedTrainer(tr, mesh).trainer
-    state = tr.init_state(GPSSMParams.from_leaves(
-        _to(spec["leaves"], dev, dtype)))
+    tr, params = _sequence_trainer(dev, spec, _mesh(spec))
+    state = tr.init_state(params)
     gen = _generator(dev, spec.get("seed", 0))
     state, trace = tr.run(state, spec["iters"], generator=gen,
                           draws=_to(spec.get("draws"), dev, dtype),
@@ -255,7 +275,9 @@ def grads_job(dev, spec) -> Dict[str, torch.Tensor]:
     own hooks: the ('dp','ep') chain trainer (``spec["axis"]`` "ep") or the
     'sp' trainer ("sp"), ``autograd.grad`` of this process's objective,
     then ``_reduce_grads``, then gathered whole.  With ``mesh`` None it is
-    the unsharded ``autograd.grad``.  Returns path → gradient, and "nll"."""
+    the unsharded ``autograd.grad``.  ``spec["start"]``: the objective on
+    the window at that start (a one-element tensor; training with
+    ``minibatch_size``).  Returns path → gradient, and "nll"."""
     from ffvd_tpu_torch.config import FFVDConfig
     from ffvd_tpu_torch.inference.particle_gibbs import make_pg_fn
     from ffvd_tpu_torch.inference.trainer import Trainer, grads_of
@@ -270,6 +292,7 @@ def grads_job(dev, spec) -> Dict[str, torch.Tensor]:
                    control=_to(spec["control"], dev, dtype))
     leaves = _to(spec["leaves"], dev, dtype)
     eps = _to(spec.get("eps"), dev, dtype)
+    start = _to(spec.get("start"), dev, dtype)
     if spec.get("axis") == "sp":
         tr = Trainer(cfg, data,
                      pg_fn=make_pg_fn(cfg) if cfg.case == 6 else None)
@@ -286,7 +309,7 @@ def grads_job(dev, spec) -> Dict[str, torch.Tensor]:
              for k, v in local.leaves().items()})
     paths = list(params.leaves())
     with torch.enable_grad():
-        nll = tr.train_nll(params, eps=eps)
+        nll = tr.train_nll(params, start=start, eps=eps)
         grads = grads_of(nll, list(params.leaves().values()))
     grads = dict(zip(paths, tr._reduce_grads(paths, grads)))
     nll = tr._reduce_nll(nll.detach())
@@ -322,19 +345,68 @@ def roundtrip_job(dev, spec) -> Dict[str, bool]:
             for k, v in whole.items()}
 
 
+def checkpoint_job(dev, spec) -> dict:
+    """A run of ``spec["trainer"]`` ("chains", "datasets" or "sequence")
+    through ``utils/checkpoint.py`` in the directory ``spec["dir"]``.
+
+    ``spec["mode"]`` "resume": ``run_with_checkpoints`` to iteration
+    ``spec["first"]``, a restore into a fresh ``init_state`` with a
+    generator of another seed, then on to ``iters``.  "restore": a restore
+    of checkpoint ``spec["first"]`` into a fresh state, then on to
+    ``iters``.  ``spec["rank_seeds"]``: each process seeds its generator
+    with seed + rank.  Returns the trace of the iterations run after
+    the restore (with those before it in "resume"), the whole state at the
+    end and right after the restore ("restored"), and the directory's
+    files once the run is over."""
+    from ffvd_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                 run_with_checkpoints)
+    mesh = _mesh(spec)
+    tr, params = {"chains": _chain_trainer, "datasets": _dataset_trainer,
+                  "sequence": _sequence_trainer}[spec["trainer"]](
+                      dev, spec, mesh)[:2]
+
+    def whole(state):
+        return _state_dict(tr._whole_state(state))
+
+    seed = spec.get("seed", 0)
+    if spec.get("rank_seeds"):
+        seed += torch.distributed.get_rank()
+    mgr = CheckpointManager(spec["dir"], max_to_keep=spec.get("keep", 3))
+    traces = []
+    if spec["mode"] == "resume":
+        _, trace = run_with_checkpoints(tr, tr.init_state(params),
+                                        spec["first"], mgr,
+                                        every=spec["first"],
+                                        generator=_generator(dev, seed))
+        traces.append(trace)
+    gen = _generator(dev, seed + 1000)
+    state = mgr.restore(tr.init_state(params), step=spec["first"],
+                        generator=gen, trainer=tr)
+    # A copy: on the CPU the one-process state dict holds the live leaves.
+    restored = {k: v.clone() for k, v in whole(state).items()}
+    state, trace = run_with_checkpoints(tr, state, spec["iters"], mgr,
+                                        every=spec["iters"], generator=gen)
+    traces.append(trace)
+    return {"trace": _cpu(torch.cat(traces)), "state": whole(state),
+            "restored": restored,
+            "files": sorted(p.name for p in mgr._dir.iterdir())}
+
+
 def raise_job(dev, spec) -> Optional[str]:
-    """``chains_job`` whose chain ``spec["bad"]`` starts non-finite: every
-    process must raise the same ``FloatingPointError``; returns its
-    message (None if nothing was raised)."""
+    """The job ``spec["job"]`` (default "chains") of ``JOBS``, expected to
+    raise on every process: a chain that starts non-finite
+    (``FloatingPointError``), or ranks whose generators differ at a
+    checkpoint (``RuntimeError``).  Returns the message (None if nothing
+    was raised)."""
     try:
-        chains_job(dev, spec)
-    except FloatingPointError as exc:
+        JOBS[spec.get("job", "chains")](dev, spec)
+    except (FloatingPointError, RuntimeError) as exc:
         return str(exc)
     return None
 
 
 JOBS = {"chains": chains_job, "datasets": datasets_job,
-        "sequence": sequence_job}
+        "sequence": sequence_job, "checkpoint": checkpoint_job}
 
 
 def jobs_in_turn(dev, plan) -> dict:

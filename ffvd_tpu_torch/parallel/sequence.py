@@ -23,7 +23,11 @@ splits is the (D, M, N) projection and its products.  The draws are the
 single process's on every process.  The C6 sweep runs on the whole x on
 every process, with the same draws; a deep model's hidden propagation is
 row-local; the ds64 segment reduces its sums in float64.  A windowed
-objective (``minibatch_size < N``) is not split (ROADMAP Queue 1, item 16).
+objective (``minibatch_size < N``) splits the same way: the window, whose
+start every process draws alike and keeps on the device, lies on one or two
+processes' rows, each evaluates the part in its rows with the one-process
+scales, and the window sums are reduced as the full batch's are
+(``model/elbo.py::windowed_elbo_terms``).
 """
 
 from __future__ import annotations
@@ -74,16 +78,15 @@ class RowShareTrainer(Trainer):
 
     def __init__(self, cfg: FFVDConfig, data: SSMData, mesh, pg_fn=None):
         super().__init__(cfg, data, pg_fn=pg_fn)
-        if self.window_n is not None:
-            raise NotImplementedError(
-                "a windowed objective (minibatch_size < N) is not split "
-                "over 'sp' (ROADMAP Queue 1, item 16)")
+        self.mesh = mesh
         self.rows, _ = shard_sequence(data, mesh)
         self.group = axis_group(mesh, "sp")
         self.width = axis_size(mesh, "sp")
-        self.nll_fn = functools.partial(
-            self.nll_fn, rows=self.rows,
-            reduce=functools.partial(diff_sum, group=self.group))
+        part = dict(rows=self.rows,
+                    reduce=functools.partial(diff_sum, group=self.group))
+        self.nll_fn = functools.partial(self.nll_fn, **part)
+        if self.window_n is not None:
+            self.win_nll_fn = functools.partial(self.win_nll_fn, **part)
 
     def _reduce_grads(self, paths, grads) -> list:
         if self.group is None:

@@ -376,21 +376,13 @@ def state_pspec(state: TrainState) -> Dict[str, tuple]:
             out.update({f"sghmc.{f}.{k}": pspec[k]
                         for k in getattr(state.sghmc, f)})
     out.update({f"window.{k}": ("dp",) for k in state.window})
-    for k in _adam_paths(state):
+    for k in state.adam_paths():
         out[f"adam.exp_avg.{k}"] = ("dp",)
         out[f"adam.exp_avg_sq.{k}"] = ("dp",)
     if state.adam is not None:
         out["adam.step"] = ()
     out.update(step=(), window_count=())
     return out
-
-
-def _adam_paths(state: TrainState) -> List[str]:
-    """The paths of the Adam leaves, in the optimizer's order."""
-    if state.adam is None:
-        return []
-    by_id = {id(v): k for k, v in state.params.leaves().items()}
-    return [by_id[id(p)] for p in state.adam.param_groups[0]["params"]]
 
 
 def map_state(state: TrainState, fn: Callable) -> TrainState:
@@ -401,7 +393,7 @@ def map_state(state: TrainState, fn: Callable) -> TrainState:
               for k, v in state.params.leaves().items()}
     adam = None
     if state.adam is not None:
-        paths = _adam_paths(state)
+        paths = state.adam_paths()
         group = state.adam.param_groups[0]
         adam = torch.optim.Adam([leaves[k] for k in paths],
                                 **{k: v for k, v in group.items()
@@ -528,6 +520,10 @@ class MeshBatchedTrainer(BatchedTrainer):
     def _gather_trace(self, nlls: torch.Tensor) -> torch.Tensor:
         return gather_blocks([(nlls, 1)], self.place.members[0],
                              self.n_whole, axis_group(self.mesh, "dp"))[0]
+
+    def _whole_state(self, state: TrainState) -> TrainState:
+        return (state if self.mesh is None
+                else gather_chain_state(state, self.mesh))
 
     def _pg(self, params: GPSSMParams, generator, pg) -> GPSSMParams:
         """C6 on a mesh: every member's sweep draws are made in order, this

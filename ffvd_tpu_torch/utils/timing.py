@@ -77,6 +77,16 @@ def timed_ms(fn, *args, n: int = 50, warmup: int = 1) -> float:
     return _stretch_ms(fn, args, n, dev) / n
 
 
+def once_ms(fn, device) -> float:
+    """ms of one call ``fn()`` on ``device``, no warm-up: the card
+    synchronised first, then CUDA events around the call; the host clock
+    on the CPU.  For stretches long enough that one call is the
+    measurement (a training run of many iterations)."""
+    dev = torch.device(device)
+    hard_sync(dev)
+    return _stretch_ms(fn, (), 1, dev)
+
+
 def in_program_ms(fn, *args, k: int = 32, n: int = 10) -> float:
     """Per-application ms of ``fn`` from back-to-back stretches of ``k`` and
     ``2k`` applications: (t(2k) − t(k)) / k, each t the mean of ``n``

@@ -1,12 +1,15 @@
 """The port stands alone: it imports nothing of JAX or of ``ffvd_tpu``, its
 entry points refuse to fall back to the CPU, and its kernel module imports
-on a machine without ``nvcc``."""
+on a machine without ``nvcc``.  The same holds for its benchmark script
+(``scripts/bench_torch.py``) and its examples (``examples_torch/``)."""
 
+import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -93,3 +96,50 @@ print("ok")
     out = _run(code, env=env)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+SCRIPTS = ["scripts/bench_torch.py"] + sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "examples_torch").glob("*.py"))
+JAX_NAMES = ("jax", "jaxlib", "optax", "ffvd_tpu")
+
+
+def _is_jax(name):
+    return any(name == n or name.startswith(n + ".") for n in JAX_NAMES)
+
+
+@pytest.mark.parametrize("path", SCRIPTS)
+def test_bench_and_examples_import_no_jax(path):
+    """No import statement of the file names JAX, optax or the JAX
+    package."""
+    tree = ast.parse((ROOT / path).read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    assert any(n.startswith("ffvd_tpu_torch") for n in names)
+    assert not [n for n in names if _is_jax(n)]
+
+
+@pytest.mark.parametrize("path", SCRIPTS)
+def test_bench_and_examples_raise_without_cuda(path):
+    """Run as a user would, without ``--platform cpu`` / ``--cpu``: the
+    card is the default, so where there is none the file raises, and it
+    has imported nothing of JAX by then."""
+    if torch.cuda.is_available():
+        return          # the card's machine: nothing to refuse there
+    code = f"""
+import runpy, sys
+sys.argv = [{path!r}]
+try:
+    runpy.run_path({path!r}, run_name="__main__")
+except RuntimeError as exc:
+    print("raised:", exc)
+else:
+    raise SystemExit("ran without CUDA")
+bad = sorted(m for m in sys.modules
+             if any(m == n or m.startswith(n + ".") for n in {JAX_NAMES!r}))
+assert not bad, bad
+"""
+    out = _run(code)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "no CUDA device" in out.stdout

@@ -33,8 +33,9 @@ from ffvd_tpu.parallel.sharding import params_pspec as j_params_pspec
 from ffvd_tpu.parallel.sharding import state_pspec as j_state_pspec
 
 from ffvd_tpu_torch.config import FFVDConfig
-from ffvd_tpu_torch.model.params import (LEAF_PATHS, SSMData, hidden_paths,
-                                         params_from_numpy)
+from ffvd_tpu_torch.inference.trainer import Trainer, grads_of
+from ffvd_tpu_torch.model.params import (LEAF_PATHS, GPSSMParams, SSMData,
+                                         hidden_paths, params_from_numpy)
 from ffvd_tpu_torch.ops import rollout as ro
 from ffvd_tpu_torch.parallel import distributed as pdist
 from ffvd_tpu_torch.parallel.sharding import (EP_AXIS, MultiChainTrainer,
@@ -266,12 +267,28 @@ def test_dim_split_covers_uneven_dims():
 
 
 def test_a_windowed_objective_is_not_split_over_sp():
+    """Without a mesh ('sp' of one process, holding every row) the window
+    is not split: the row-share trainer's windowed objective is the
+    unsharded one, value and gradients, at every start.  Splits over 4
+    processes: ``tests/test_torch_dist_window.py``."""
     leaves, y, control = deep_model(1, n=20, n_hidden=0)
     cfg = FFVDConfig(dataset="ballbeam", case=4, num_inducing=6, x_dim=2,
                      minibatch_size=8)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        RowShareTrainer(cfg, SSMData(y=torch.as_tensor(y),
-                                     control=torch.as_tensor(control)), None)
+    data = SSMData(y=torch.as_tensor(y), control=torch.as_tensor(control))
+    share = RowShareTrainer(cfg, data, None)
+    assert share.rows == (0, 20) and share.window_n == 8
+    one = Trainer(cfg, data)
+    for start in (0, 5, 12):
+        got, want = [], []
+        for tr, out in ((share, got), (one, want)):
+            leaves_t = {k: torch.tensor(v, requires_grad=True)
+                        for k, v in leaves.items()}
+            nll = tr.train_nll(GPSSMParams.from_leaves(leaves_t),
+                               start=torch.tensor([start]))
+            out.append(nll.detach())
+            out.extend(grads_of(nll, list(leaves_t.values())))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-14)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
