@@ -89,9 +89,28 @@ that each print one JSON line:
    ``--quick``, its JSON line printed, and its rollout launches;
 8d. the eight examples of ``examples_torch/`` in this process at
    ``--quick``, each one's rollout launches;
+9. captured against eager (``utils/graphs.py``): fp64 on the card,
+   ``run(capture=False)`` against ``run(capture=True)`` from equal states
+   with the same draws, the trace and every state tensor within rtol 1e-12
+   (bit-equal by construction): ballbeam C4 over 200 iterations, C5 with
+   injected draws and from a CUDA generator, C6 with injected sweep draws,
+   deep flutter C4 and the kink N=5000 W=256 window with injected draws, 8
+   C4 chains; one graph replay an iteration; 5 more replays of each under
+   ``torch.cuda.set_sync_debug_mode("error")``; C5's thinning, 10 × 32
+   sub-steps eager against captured, one replay a sub-step, again under
+   "error".  Then fp32 rates of one trainer each, an eager span then a
+   captured one in this call: C4, C5 (and its ``evaluate()`` ms eager and
+   captured), C2, C6, deep flutter C4, kink W=256, 8 C4 chains, six
+   datasets × M=512; capture seconds and graph pool MiB; and the
+   branch-free Cholesky retry's cost against one factorisation at C4's
+   shapes, timed inside a graph;
 6. kernel timing with CUDA events at S=10 and S=64, shared and per-sample
    inputs, with the launch plan; fp32 at 80 per-sample rows and at M=512
    (global plan); and one ``{"kernels": [...]}`` line.
+
+Every training ``run`` and thinning above takes the default, a replayed
+CUDA graph on the card; phase 9 and the profile script
+(``scripts/profile_torch_train.py``) set ``capture=False`` to compare.
 
 The last lines are the card's name and power limit, the kernels line, and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  Without
@@ -116,6 +135,8 @@ REPORT = {}
 # Main-path shapes and protocol (ffvd_tpu_torch/config.py defaults).
 S, T, HORIZON = 10, 500, 30
 ANCHOR_NLL = -2.410755          # ballbeam C4 warm-start nll (fp64, golden)
+# Ballbeam C4's 30-step RMSE band: at most the TF reference's (PARITY §2).
+RMSE_BAND_C4 = 0.0282
 # Phase 4i's depth, short enough to leave the script's time to later phases.
 CHAIN_ITERATIONS = 250
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; FLOP/s for
@@ -545,6 +566,8 @@ def phase_main_path(torch, ro, card):
     check(nll_last < nll0, f"nll did not decrease: {nll0} -> {nll_last}")
     check(math.isfinite(res["rmse"]) and math.isfinite(res["nll"]),
           f"non-finite RMSE/NLL {res['rmse']}/{res['nll']}")
+    check(res["rmse"] <= RMSE_BAND_C4,
+          f"C4 RMSE {res['rmse']} above PARITY §2's band {RMSE_BAND_C4}")
     check(launches_after_fit == 0 and launches == 1,
           f"rollout launches: {launches_after_fit} in fit, {launches} total")
     return launches
@@ -1318,6 +1341,317 @@ def phase_six_datasets(torch, ro, card):
     check(all(math.isfinite(r["rmse"]) and math.isfinite(r["nll"])
               for r in res.values()), f"six datasets: {res}")
     return launches_fit + launches_eval
+
+
+def _rel_diff(torch, a, b):
+    """max |a − b| / max(max |b|, tiny) of two tensors of one shape."""
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300)) \
+        if a.numel() else 0.0
+
+
+def _hold_equal(torch, what, a, b, trace_a, trace_b, rtol=1e-12):
+    """The eager run (``a``, ``trace_a``) against the captured one: the
+    trace and every tensor of the state within ``rtol`` of the scale of
+    each, and whether all of it is bit-equal."""
+    pairs = [(trace_a, trace_b)] + list(zip(a.tensors(), b.tensors()))
+    worst = max(_rel_diff(torch, x, y) for x, y in pairs)
+    same = all(torch.equal(x, y) for x, y in pairs)
+    check(len(a.tensors()) == len(b.tensors()) and worst <= rtol,
+          f"captured vs eager, {what}: max rel diff {worst}")
+    return {"max_rel_diff": worst, "bit_equal": same,
+            "tensors": len(pairs)}
+
+
+def _no_syncs(torch, fn):
+    """Run ``fn`` with the card's sync debug mode at "error": any host
+    synchronisation inside raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def _graph_info(step_graph):
+    return {"replays": step_graph.replays,
+            "capture_s": step_graph.capture_s,
+            "pool_MiB": None if step_graph.pool_bytes is None
+            else step_graph.pool_bytes / 2 ** 20}
+
+
+def _captured_holds(torch):
+    """Phase 9's holds: fp64 on the card, eager ``run(capture=False)`` and
+    captured ``run(capture=True)`` from equal fresh states with the same
+    draws (injected on the card, or from two equal CUDA generators); then
+    more replays of each captured trainer under sync debug "error"."""
+    from ffvd_tpu_torch.api import FFVDModel
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.data import generate_kink
+    from ffvd_tpu_torch.eval.rollout import thin_posterior
+    from ffvd_tpu_torch.inference import particle_gibbs as pg
+    from ffvd_tpu_torch.inference.trainer import SUBSTEP_FLAGS, Trainer
+    from ffvd_tpu_torch.model.params import init_params_random
+    from ffvd_tpu_torch.parallel import MultiChainTrainer
+    from ffvd_tpu_torch.utils.graphs import WARMUP
+    f64 = torch.float64
+    gen = lambda s: torch.Generator(device="cuda").manual_seed(s)
+    out = {}
+
+    def hold(name, tr, fresh, n, draws=None, seed=None, more=5):
+        a, b = fresh(), fresh()
+        ga, gb = (None, None) if seed is None else (gen(seed), gen(seed))
+        t0 = time.time()
+        _, ta = tr.run(a, n, draws=draws, generator=ga, capture=False)
+        t1 = time.time()
+        _, tb = tr.run(b, n, draws=draws, generator=gb, capture=True)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        res = _hold_equal(torch, name, a, b, ta, tb)
+        replays = tr._graph.graph.replays
+        check(replays == n - WARMUP,
+              f"{name}: {replays} replays for {n} iterations")
+        extra = None if draws is None else draws[:more]
+        _no_syncs(torch, lambda: tr.run(b, more, draws=extra, generator=gb,
+                                        capture=True, nan_check=False))
+        check(tr._graph.graph.replays == replays + more,
+              f"{name}: a captured iteration is not one replay")
+        out[name] = {**res, "iterations": n, "eager_s": t1 - t0,
+                     "captured_s": t2 - t1, "replays_under_sync_error":
+                     more, **_graph_info(tr._graph.graph)}
+
+    _, data, p0 = _cuda_data(torch, "ballbeam", f64)
+    c4 = Trainer(FFVDConfig(dataset="ballbeam", case=4), data)
+    hold("C4", c4, lambda: c4.init_state(p0), 200)
+
+    c5 = Trainer(FFVDConfig(dataset="ballbeam", case=5), data)
+    sub = c5.subset.split(p0)
+    g = gen(91)
+    draws = [{"noise": {k: torch.randn((len(SUBSTEP_FLAGS),) + tuple(v.shape),
+                                       generator=g, dtype=f64, device="cuda")
+                        for k, v in sub.items()},
+              "feed": torch.randint(0, min(i + 1, 64), (1,), generator=g,
+                                    device="cuda")} for i in range(10)]
+    hold("C5_injected", c5, lambda: c5.init_state(p0), 10, draws)
+    hold("C5_generator", c5, lambda: c5.init_state(p0), 10, seed=92)
+    # the thinning sub-step from the warm start: 10 samples × 32 sub-steps,
+    # eager and captured, from two equal CUDA generators
+    gb = gen(97)
+    sa, ma = thin_posterior(c5, c5.init_state(p0), S, 32, gen(97),
+                            capture=False)
+    sb, mb = thin_posterior(c5, c5.init_state(p0), S, 32, gb, capture=True)
+    worst = max(_rel_diff(torch, p.leaves()[k], q.leaves()[k])
+                for p, q in zip(sa + [ma.params], sb + [mb.params])
+                for k in c5.subset.paths)
+    check(worst <= 1e-12, f"thinning: captured vs eager {worst}")
+    thin_replays = c5._thin_graph.graph.replays
+    check(thin_replays == S * 32 - WARMUP,
+          f"thinning: {thin_replays} replays for {S * 32} sub-steps")
+    _no_syncs(torch, lambda: thin_posterior(c5, mb, S, 32, gb,
+                                            capture=True))
+    check(c5._thin_graph.graph.replays == thin_replays + S * 32,
+          "thinning: a sub-step is not one replay")
+    out["C5_thinning"] = {"samples": S, "spacing": 32, "max_rel_diff": worst,
+                          **_graph_info(c5._thin_graph.graph)}
+
+    cfg6 = FFVDConfig(dataset="ballbeam", case=6)
+    c6 = Trainer(cfg6, data, pg_fn=pg.make_pg_fn(cfg6))
+    g = gen(93)
+    draws = [{"pg": pg.pg_draws(cfg6, p0, g)} for _ in range(8)]
+    hold("C6_injected", c6, lambda: c6.init_state(p0), 3, draws)
+
+    deep = FFVDModel(FFVDConfig(dataset="flutter", case=4, n_layers=2),
+                     device="cuda", dtype=f64)
+    dt = deep.trainer
+    g = gen(94)
+    draws = [dt.grad_draws(1, g, deep.params.x) for _ in range(10)]
+    hold("deep_C4_injected", dt, lambda: dt.init_state(deep.params), 5,
+         draws)
+
+    n = 5000
+    kink = FFVDModel(FFVDConfig(dataset="kink", case=4, minibatch_size=256),
+                     device="cuda", dtype=f64, dataset=generate_kink(n=n),
+                     params=init_params_random(
+                         n, 4, 100, 0, generator=torch.Generator()
+                         .manual_seed(0), device="cuda", dtype=f64))
+    kt = kink.trainer
+    g = gen(95)
+    draws = [kt.grad_draws(1, g, kink.params.x) for _ in range(10)]
+    hold("window_kink_N5000_W256_injected", kt,
+         lambda: kt.init_state(kink.params), 5, draws)
+
+    mct = MultiChainTrainer(FFVDConfig(dataset="ballbeam", case=4), data, 8)
+    stacked = mct.stack_params(p0, gen(96))
+    hold("C4x8_chains", mct, lambda: mct.init_state(stacked), 50)
+    return out
+
+
+def _rate(torch, fn, n):
+    """it/s of ``fn(n)``, the card synchronised around it."""
+    torch.cuda.synchronize()
+    t = time.time()
+    fn(n)
+    torch.cuda.synchronize()
+    return n / (time.time() - t)
+
+
+def _captured_rates(torch, main):
+    """Phase 9's rates, fp32: each trainer runs an eager span, then its
+    first captured call (warm-up and capture), then a timed captured span,
+    in this call; the C4 protocol rate of phase 4 beside them."""
+    from ffvd_tpu_torch.api import FFVDModel
+    from ffvd_tpu_torch.config import DATASETS, FFVDConfig
+    from ffvd_tpu_torch.data import generate_kink
+    from ffvd_tpu_torch.model.params import init_params_random
+    from ffvd_tpu_torch.parallel import (MultiChainTrainer,
+                                         MultiDatasetTrainer, stack_datasets)
+    from ffvd_tpu_torch.utils.graphs import WARMUP
+    out = {}
+
+    def model_rates(name, model, eager_n, captured_n, evaluate=False):
+        tr = model.trainer
+        model.capture = False
+        model.fit(1)
+        eager = _rate(torch, model.fit, eager_n)
+        model.capture = None
+        torch.cuda.synchronize()
+        t = time.time()
+        model.fit(WARMUP + 1)                     # warm-up, capture, replay
+        torch.cuda.synchronize()
+        first = time.time() - t
+        captured = _rate(torch, model.fit, captured_n)
+        r = {"eager_it_per_s": eager, "captured_it_per_s": captured,
+             "speedup": captured / eager, "eager_iterations": eager_n,
+             "captured_iterations": captured_n,
+             "first_captured_call_s": first, **_graph_info(tr._graph.graph)}
+        if evaluate:
+            ms = {}
+            for mode, cap in (("eager", False), ("captured_first", None),
+                              ("captured", None)):
+                model.capture = cap
+                torch.cuda.synchronize()
+                t = time.time()
+                res = model.evaluate()
+                torch.cuda.synchronize()
+                ms[mode] = (time.time() - t) * 1e3
+                check(math.isfinite(res["rmse"]), f"{name}: evaluate {res}")
+            r["evaluate_ms"] = ms
+            r["thin_graph"] = _graph_info(tr._thin_graph.graph)
+        check(all(math.isfinite(v) for v in model.nll_trace[-5:].tolist()),
+              f"{name}: non-finite nll")
+        out[name] = r
+
+    def trainer_rates(name, tr, state, gen, eager_n, captured_n):
+        run = lambda cap: (lambda n: tr.run(state, n, generator=gen,
+                                            capture=cap))
+        run(False)(1)
+        eager = _rate(torch, run(False), eager_n)
+        torch.cuda.synchronize()
+        t = time.time()
+        run(True)(WARMUP + 1)
+        torch.cuda.synchronize()
+        first = time.time() - t
+        captured = _rate(torch, run(True), captured_n)
+        out[name] = {"eager_it_per_s": eager, "captured_it_per_s": captured,
+                     "speedup": captured / eager, "eager_iterations": eager_n,
+                     "captured_iterations": captured_n,
+                     "first_captured_call_s": first,
+                     **_graph_info(tr._graph.graph)}
+
+    model_rates("C4", FFVDModel(FFVDConfig(dataset="ballbeam", case=4),
+                                device="cuda"), 300, 2000)
+    out["C4"]["phase4_protocol_captured_it_per_s"] = main["train_it_per_s"]
+    model_rates("C5", FFVDModel(FFVDConfig(dataset="ballbeam", case=5),
+                                device="cuda"), 5, 40, evaluate=True)
+    model_rates("C2", FFVDModel(FFVDConfig(dataset="ballbeam", case=2),
+                                device="cuda"), 5, 40)
+    model_rates("C6", FFVDModel(FFVDConfig(dataset="ballbeam", case=6),
+                                device="cuda"), 3, 20)
+    model_rates("deep_flutter_C4", FFVDModel(
+        FFVDConfig(dataset="flutter", case=4, n_layers=2), device="cuda"),
+        60, 300)
+    n = 5000
+    model_rates("window_kink_N5000_W256", FFVDModel(
+        FFVDConfig(dataset="kink", case=4, minibatch_size=256),
+        device="cuda", dataset=generate_kink(n=n),
+        params=init_params_random(n, 4, 100, 0, generator=torch.Generator()
+                                  .manual_seed(0), device="cuda",
+                                  dtype=torch.float32)), 60, 300)
+    _, data, p0 = _cuda_data(torch, "ballbeam", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mct = MultiChainTrainer(FFVDConfig(dataset="ballbeam", case=4), data, 8)
+    trainer_rates("C4x8_chains", mct, mct.init_state(mct.stack_params(
+        p0, gen)), gen, 60, 300)
+    out["C4x8_chains"]["captured_chain_it_per_s"] = \
+        8 * out["C4x8_chains"]["captured_it_per_s"]
+    sdata, sparams, _ = stack_datasets(DATASETS, device="cuda",
+                                       dtype=torch.float32, m=512)
+    mdt = MultiDatasetTrainer(FFVDConfig(dataset="ballbeam", case=4,
+                                         num_inducing=512), sdata)
+    trainer_rates("six_datasets_m512", mdt, mdt.init_state(sparams), gen,
+                  20, 100)
+    return out
+
+
+def _retry_cost(torch):
+    """The branch-free Cholesky retry against the one factorisation that a
+    healthy element needed before, at C4's shapes (D=4 blocks of 100×100,
+    fp32), as the captured step pays it: 20 calls captured in a CUDA graph,
+    10 replays timed with CUDA events (eager calls would time their
+    launches); and the calls in one C4 iteration."""
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.inference.trainer import Trainer
+    from ffvd_tpu_torch.ops import chol
+    from ffvd_tpu_torch.utils import graphs
+    g = torch.Generator(device="cuda").manual_seed(7)
+    b = torch.randn((4, 100, 100), generator=g, device="cuda")
+    a = b @ b.mT / 100 + torch.eye(100, device="cuda")
+
+    def per_call_us(fn, calls=20, replays=10):
+        step = graphs.StepGraph(lambda d: [fn() for _ in range(calls)], {},
+                                True)
+        for _ in range(graphs.WARMUP + 1):      # warm-ups, then the capture
+            step({})
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            step({})
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / (calls * replays) * 1e3
+
+    one = per_call_us(lambda: torch.linalg.cholesky_ex(a))
+    three = per_call_us(lambda: chol._psd_cholesky_impl(a, 1e-4))
+    calls, impl = [], chol._psd_cholesky_impl
+    chol._psd_cholesky_impl = lambda m, j: calls.append(m.shape) or impl(m, j)
+    try:
+        _, data, p0 = _cuda_data(torch, "ballbeam", torch.float32)
+        tr = Trainer(FFVDConfig(dataset="ballbeam", case=4), data)
+        tr.outer_step(tr.init_state(p0))
+    finally:
+        chol._psd_cholesky_impl = impl
+    return {"shape": [4, 100, 100], "dtype": "fp32", "timed": "in a graph",
+            "one_factorisation_us": one, "branch_free_us": three,
+            "added_us_per_call": three - one,
+            "calls_per_C4_iteration": len(calls),
+            "added_us_per_C4_iteration": (three - one) * len(calls)}
+
+
+def phase_captured(torch, card, main):
+    """Phase 9: captured against eager, on the card (see the module
+    docstring)."""
+    t0 = time.time()
+    backend = str(torch.backends.cuda.preferred_linalg_library())
+    holds = _captured_holds(torch)
+    rates = _captured_rates(torch, main)
+    retry = _retry_cost(torch)
+    emit("captured_vs_eager", card=card, linalg_backend=backend,
+         holds=holds, rates_fp32=rates, cholesky_retry=retry,
+         seconds=time.time() - t0)
+    return {"holds": holds, "rates": rates}
 
 
 def phase_fp64_batched(torch):
@@ -2273,6 +2607,8 @@ def main() -> int:
     multichain = timed("multichain_path", phase_multichain_path, torch, ro,
                        card, REPORT["main_path"])
     six = timed("six_datasets_m512", phase_six_datasets, torch, ro, card)
+    timed("captured_vs_eager", phase_captured, torch, card,
+          REPORT["main_path"])
     timed("fp64_train", phase_fp64_train, torch)
     timed("fp64_sampler", phase_fp64_sampler, torch)
     timed("fp64_pg", phase_fp64_pg, torch)

@@ -61,8 +61,11 @@ class FFVDModel:
     """Config → data → warm start → trainer → posterior predictions."""
 
     def __init__(self, cfg: FFVDConfig, device=None, dtype=None, dataset=None,
-                 params: Optional[GPSSMParams] = None):
-        """``dataset``/``params`` may be injected (e.g. synthetic data from
+                 params: Optional[GPSSMParams] = None,
+                 capture: Optional[bool] = None):
+        """``capture``: train and thin by replaying CUDA graphs
+        (``Trainer.run``); None captures on the card, False runs eagerly.
+        ``dataset``/``params`` may be injected (e.g. synthetic data from
         ``data.synthetic`` and a cold start from ``init_params_random``); by
         default the named dataset and its Factnonlin warm start load.  A
         shallow start is adapted to ``cfg.x_dim``, its inducing set resized
@@ -70,6 +73,7 @@ class FFVDModel:
         ``cfg.n_layers > 1``, given near-identity hidden layers drawn from
         the host generator."""
         self.cfg = cfg
+        self.capture = capture
         _warn_deep_usage(cfg)
         self.device = resolve_device(device)
         self.dtype = dtype or default_dtype(self.device)
@@ -172,7 +176,7 @@ class FFVDModel:
                 trainer = self._tail_trainer()
             self.state, nlls = trainer.run(
                 self.state, m, chunk_size=chunk_size,
-                generator=self.train_generator)
+                generator=self.train_generator, capture=self.capture)
             self.nll_trace = torch.cat([self.nll_trace, nlls])
             done += m
             if tb is not None:
@@ -196,7 +200,7 @@ class FFVDModel:
         xs, vs, self.state = collect_posterior(
             self.eval_trainer, self.state, test_len, num=num_samples,
             generator=self.generator, noise=noise, thin_noise=thin_noise,
-            thin_generator=self.train_generator)
+            thin_generator=self.train_generator, capture=self.capture)
         return xs, vs
 
     @torch.no_grad()

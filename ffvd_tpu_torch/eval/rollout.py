@@ -47,7 +47,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-from ffvd_tpu_torch.inference.trainer import Trainer, TrainState
+from ffvd_tpu_torch.inference.sghmc import SGHMCState
+from ffvd_tpu_torch.inference.trainer import Trainer, TrainState, _assign
 from ffvd_tpu_torch.model.conditionals import (Precal, collapsed_u_posterior,
                                                gp_transition, kernel_precal)
 from ffvd_tpu_torch.model.deep import (hidden_normals, hidden_precals,
@@ -59,6 +60,7 @@ from ffvd_tpu_torch.model.likelihoods import emission_mean, use_full_r
 from ffvd_tpu_torch.model.params import GPSSMParams, SSMData
 from ffvd_tpu_torch.ops import rollout as rollout_ops
 from ffvd_tpu_torch.ops.kernels import KernelParams
+from ffvd_tpu_torch.utils import graphs
 
 
 def _ds64(cfg) -> bool:
@@ -107,10 +109,54 @@ def u_and_qsqrt(trainer: Trainer, params: GPSSMParams, data: SSMData,
     return u_val, q_sqrt
 
 
+def _thin_move(trainer: Trainer, params: GPSSMParams, generator,
+               sub: Dict[str, torch.Tensor], sstate: SGHMCState, d: dict):
+    """One sample-only sub-step of the chain (``sub``, ``sstate``) on the
+    full-batch gradient at ``params``: ``d`` may hold its ``noise`` and a
+    deep model's inter-layer normals ``eps``, else they are drawn from
+    ``generator``."""
+    eps = d.get("eps")
+    if trainer.stochastic and eps is None:
+        x = params.x
+        eps = [trainer._share(p) for p in hidden_normals(
+            len(params.hidden), trainer._whole_lead() + (x.shape[-2] - 1,),
+            x.shape[-1], generator, x.dtype, x.device)]
+    return trainer.sghmc_move(sub, sstate, params, False, d.get("noise"),
+                              generator, eps=eps)
+
+
+class _ThinGraph:
+    """``_thin_move`` on static chain buffers, as a ``utils.graphs.
+    StepGraph``; bound to the fixed leaves of ``params``, the data and the
+    generator (``fp``) and to the draws' signature (``sig``)."""
+
+    def __init__(self, trainer, params, generator, sub, sstate, d, fp,
+                 capture: bool):
+        self.sub = {k: v.clone() for k, v in sub.items()}
+        self.sstate = sstate.map(torch.clone)
+
+        def body(dd):
+            new, ss = _thin_move(trainer, params, generator, self.sub,
+                                 self.sstate, dd)
+            with torch.no_grad():
+                _assign(self.sub, new)
+                self.sstate.assign_(ss)
+
+        self.graph = graphs.StepGraph(body, d, capture, generator)
+        self.fp, self.sig = fp, (capture, graphs.signature(d))
+
+    def load(self, sub, sstate) -> None:
+        """Start the chain from ``sub``, ``sstate``."""
+        with torch.no_grad():
+            _assign(self.sub, sub)
+            self.sstate.assign_(sstate)
+
+
 def thin_posterior(trainer: Trainer, state: TrainState, num: int,
                    spacing: int, generator: Optional[torch.Generator] = None,
                    thin_noise: Optional[Dict[str, torch.Tensor]] = None,
-                   thin_prop: Optional[List[torch.Tensor]] = None):
+                   thin_prop: Optional[List[torch.Tensor]] = None,
+                   capture: Optional[bool] = None):
     """Continue the SG-HMC chain: per sample, ``spacing`` sample-only
     sub-steps of the SG-HMC leaves (base_model.py:227-231), full batch.  A
     deep (stochastic) trainer draws fresh inter-layer normals for every
@@ -118,37 +164,73 @@ def thin_posterior(trainer: Trainer, state: TrainState, num: int,
     ``thin_noise`` (path → (num, spacing, ...)) and ``thin_prop`` (one
     (num, spacing, N, D) tensor per hidden layer) replace the normals drawn
     from ``generator``.  Returns (the ``num`` thinned params, the state
-    with the moved chain).  A ``parallel.BatchedTrainer`` thins every
-    member at once on the batched gradient; its state, samples and
-    injected normals carry the member axis first; a process of a sharded
-    run keeps its share of each draw (``Trainer._share``)."""
+    with the moved chain); ``state`` itself is left as it was.  A
+    ``parallel.BatchedTrainer`` thins every member at once on the batched
+    gradient; its state, samples and injected normals carry the member
+    axis first; a process of a sharded run keeps its share of each draw
+    (``Trainer._share``).
+
+    ``capture`` (as in ``Trainer.run``; by default on the card): each
+    sub-step is one replay of a captured sub-step (``utils/graphs.py``),
+    the counterpart of ``build_collect``'s thinning scan, with its injected
+    normals copied into static buffers.  A sample is a copy of the chain's
+    buffers.  The trainer keeps the graph for its next call."""
+    return _thin(trainer, state, num, spacing, generator, thin_noise,
+                 thin_prop, trainer.capture_mode(state, capture) or None)
+
+
+def _thin(trainer: Trainer, state: TrainState, num: int, spacing: int,
+          generator, thin_noise, thin_prop, graph: Optional[bool]):
+    """``thin_posterior``: eagerly (``graph`` None), or through the
+    sub-step's graph, captured (True) or run plainly (False, the CPU
+    tests' view of what the card captures)."""
     subset = trainer.subset
     params = state.params
     sub = {k: v.detach() for k, v in subset.split(params).items()}
     sstate = state.sghmc
-    n_hidden = len(params.hidden)
     lead = trainer.lead
     pick = lambda v, i, j: v[(slice(None),) * len(lead) + (i, j)]
+
+    def draws(i, j) -> dict:
+        d = {}
+        if thin_noise is not None:
+            d["noise"] = trainer._share_tree({k: pick(v, i, j)
+                                              for k, v in thin_noise.items()})
+        if thin_prop is not None and trainer.stochastic:
+            d["eps"] = [trainer._share(pick(p, i, j)) for p in thin_prop]
+        return d
+
+    if graph is not None:
+        fixed = [v for k, v in params.leaves().items()
+                 if k not in subset.paths]
+        fp = graphs.fingerprint(generator,
+                                fixed + graphs.data_tensors(trainer))
+        g = getattr(trainer, "_thin_graph", None)
+        if g is None or g.fp != fp or g.sig != (graph,
+                                                graphs.signature(draws(0, 0))):
+            g = trainer._thin_graph = _ThinGraph(
+                trainer, params, generator, sub, sstate, draws(0, 0), fp,
+                graph)
+        g.load(sub, sstate)
+        sub, sstate = g.sub, g.sstate
+
+        def move(sub, sstate, d):
+            g.graph(d)
+            return sub, sstate
+        keep = torch.clone
+    else:
+        def move(sub, sstate, d):
+            return _thin_move(trainer, params, generator, sub, sstate, d)
+        keep = lambda t: t
     samples = []
     for i in range(num):
         for j in range(spacing):
-            nz = (None if thin_noise is None
-                  else trainer._share_tree({k: pick(v, i, j)
-                                            for k, v in thin_noise.items()}))
-            eps = None
-            if trainer.stochastic:
-                eps = [trainer._share(p) for p in (
-                    [pick(p, i, j) for p in thin_prop]
-                    if thin_prop is not None else hidden_normals(
-                        n_hidden,
-                        trainer._whole_lead() + (params.x.shape[-2] - 1,),
-                        params.x.shape[-1], generator, params.x.dtype,
-                        params.x.device))]
-            sub, sstate = trainer.sghmc_move(sub, sstate, params, False, nz,
-                                             generator, eps=eps)
-        samples.append(subset.merge(sub, params))
+            sub, sstate = move(sub, sstate, draws(i, j))
+        samples.append(subset.merge({k: keep(v) for k, v in sub.items()},
+                                    params))
     return samples, dataclasses.replace(
-        state, params=subset.merge(sub, params), sghmc=sstate)
+        state, params=subset.merge({k: keep(v) for k, v in sub.items()},
+                                   params), sghmc=sstate.map(keep))
 
 
 def posterior_inputs(trainer: Trainer, samples: List[GPSSMParams]) -> dict:
@@ -224,7 +306,8 @@ def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
                       thin_noise: Optional[Dict[str, torch.Tensor]] = None,
                       thin_generator: Optional[torch.Generator] = None,
                       hidden_noise: Optional[List[torch.Tensor]] = None,
-                      thin_prop: Optional[List[torch.Tensor]] = None):
+                      thin_prop: Optional[List[torch.Tensor]] = None,
+                      capture: Optional[bool] = None):
     """Draw ``num`` posterior predictive trajectories of ``test_len`` steps.
 
     Without SG-HMC leaves the samples are iid: one q(U) summary, one
@@ -236,8 +319,9 @@ def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
     for a thinned chain.  ``generator`` draws the rollout's Philox seed
     (kernel) or normals (recursion); ``noise`` (num, test_len, D) and, for
     a deep model, ``hidden_noise`` (one (num, test_len, D) tensor per
-    hidden layer), when given, replace that noise.  Returns (predict_x
-    (S, T, D), predict_x_var (S, T, D), the state with the moved chain)."""
+    hidden layer), when given, replace that noise.  ``capture``: the
+    thinning's, as in ``thin_posterior``.  Returns (predict_x (S, T, D),
+    predict_x_var (S, T, D), the state with the moved chain)."""
     cfg = trainer.cfg
     num = num or cfg.num_posterior_samples
     controls = rollout_controls(trainer.data, test_len)
@@ -254,7 +338,7 @@ def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
     if trainer.has_sghmc:
         samples, state = thin_posterior(
             trainer, state, num, cfg.posterior_sample_spacing,
-            thin_generator, thin_noise, thin_prop)
+            thin_generator, thin_noise, thin_prop, capture)
         if recursion:
             rolls = [recursion_rollout(
                 trainer, p, controls, noise[i:i + 1],

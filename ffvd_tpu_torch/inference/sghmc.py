@@ -43,6 +43,20 @@ class SGHMCState:
     g2: Leaves
     p: Leaves
 
+    def tensors(self) -> list:
+        return [v for f in ("xi", "g", "g2", "p")
+                for v in getattr(self, f).values()]
+
+    def map(self, fn) -> "SGHMCState":
+        """The state of ``fn(tensor)`` for every tensor."""
+        return SGHMCState(**{f: {k: fn(v) for k, v in getattr(self, f).items()}
+                             for f in ("xi", "g", "g2", "p")})
+
+    def assign_(self, other: "SGHMCState") -> None:
+        """Copy ``other`` into this state's tensors, which keep their
+        addresses (one foreach copy)."""
+        torch._foreach_copy_(self.tensors(), other.tensors())
+
 
 def sghmc_init(params: Leaves) -> SGHMCState:
     return SGHMCState(

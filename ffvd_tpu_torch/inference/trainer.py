@@ -105,6 +105,32 @@ def sanitize_grads(grads, clip):
             for g in grads]
 
 
+def _assign(dst: Leaves, src: Leaves) -> None:
+    """dst[k] ← src[k] in place for every key of ``dst``: the tensors keep
+    their addresses (one foreach copy)."""
+    keys = list(dst)
+    if keys:
+        torch._foreach_copy_([dst[k] for k in keys], [src[k] for k in keys])
+
+
+def adam_steps_in_leaf_dtype(adam: Optional[torch.optim.Adam]) -> None:
+    """A capturable Adam (the card's) keeps each step count on the device as
+    a float32 tensor and computes the bias corrections 1 − βᵗ from it, so
+    in float32 for fp64 leaves too (2.7e-6 relative over 200 fp64 C4
+    iterations against the CPU's float64 count).  Give every leaf its state
+    now (Adam's own zeros) with the count in the leaf's dtype, or recast a
+    restored count."""
+    if adam is None or not adam.defaults["capturable"]:
+        return
+    for p in adam.param_groups[0]["params"]:
+        st = adam.state[p]
+        if st:
+            st["step"] = st["step"].to(p.dtype)
+        else:
+            st.update(step=p.new_zeros(()), exp_avg=torch.zeros_like(p),
+                      exp_avg_sq=torch.zeros_like(p))
+
+
 def _log_clip_bounds(clip):
     """None → None, scalar c → (−c, c), or an explicit (lower, upper) pair
     (FFVDConfig.log_clip_bounds)."""
@@ -147,11 +173,34 @@ class SubsetOps:
 class TrainState:
     params: GPSSMParams
     adam: Optional[torch.optim.Adam]
-    step: int = 0
     sghmc: Optional[SGHMCState] = None
     # (window_size, ...) snapshots of the SG-HMC leaves only, keyed by path
     window: Leaves = dataclasses.field(default_factory=dict)
-    window_count: int = 0
+    # [step, window_count], int64 on the params' device: the step reads
+    # and advances them there, so a CUDA graph can replay it
+    # (``utils/graphs.py``).  ``step`` and ``window_count`` read them as ints.
+    counts: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.counts is None:
+            self.counts = torch.zeros(2, dtype=torch.int64,
+                                      device=self.params.x.device)
+
+    @property
+    def step(self) -> int:
+        return int(self.counts[0])
+
+    @step.setter
+    def step(self, value: int):
+        self.counts[0] = int(value)
+
+    @property
+    def window_count(self) -> int:
+        return int(self.counts[1])
+
+    @window_count.setter
+    def window_count(self, value: int):
+        self.counts[1] = int(value)
 
     def adam_paths(self) -> List[str]:
         """The paths of the Adam leaves, in the optimizer's order."""
@@ -159,6 +208,17 @@ class TrainState:
             return []
         by_id = {id(v): k for k, v in self.params.leaves().items()}
         return [by_id[id(p)] for p in self.adam.param_groups[0]["params"]]
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the state, Adam's moments and steps included."""
+        out = list(self.params.leaves().values()) + [self.counts]
+        out += list(self.window.values())
+        if self.sghmc is not None:
+            out += self.sghmc.tensors()
+        if self.adam is not None:
+            out += [v for st in self.adam.state.values() for v in st.values()
+                    if torch.is_tensor(v)]
+        return out
 
 
 class Trainer:
@@ -232,11 +292,15 @@ class Trainer:
                   for k, v in params.leaves().items()}
         # torch.optim.Adam is optax.adam's formula: b1=0.9, b2=0.999,
         # bias-corrected moments, eps=1e-8 added outside the square root.
+        # On the card its step count stays on the device (capturable), on
+        # the eager path too, so eager and captured runs agree bit for bit.
         # C7 has no Adam leaves, and Adam takes no empty parameter list.
         adam = (torch.optim.Adam(
             [v for k, v in leaves.items() if self.labels[k] == ADAM],
-            lr=self.adam_lr, betas=(0.9, 0.999), eps=1e-8)
+            lr=self.adam_lr, betas=(0.9, 0.999), eps=1e-8,
+            capturable=params.x.device.type == "cuda")
             if self.has_adam else None)
+        adam_steps_in_leaf_dtype(adam)
         params = GPSSMParams.from_leaves(leaves)
         sub = self.subset.split(params)
         w = self.cfg.window_size
@@ -262,10 +326,11 @@ class Trainer:
         paths = self.subset.paths
         chain = SGHMCState(**{f: {k: as_t(sghmc[f][k]) for k in paths}
                               for f in ("xi", "g", "g2", "p")})
-        return dataclasses.replace(
-            state, sghmc=chain,
-            window={k: as_t(window[k]) for k in paths},
-            window_count=int(window_count))
+        state = dataclasses.replace(
+            state, sghmc=chain, window={k: as_t(window[k]) for k in paths},
+            counts=state.counts.clone())
+        state.window_count = int(window_count)
+        return state
 
     # -- one gradient evaluation's objective and random inputs --------------
 
@@ -379,16 +444,19 @@ class Trainer:
     def _feed_params(self, state: TrainState, generator, feed) -> GPSSMParams:
         """The params with the SG-HMC leaves replaced by window slot i,
         i ~ U[0, max(count, 1)) drawn after the snapshot (trainer.py:424),
-        one slot per member."""
+        one slot per member.  The bound is the device count: a 62-bit draw
+        modulo it (a bias below 2⁻⁵⁶), so nothing is read back."""
         dev = state.params.x.device
         shape = self._whole_lead() or (1,)
         if feed is None:
             if generator is None:
                 raise ValueError("the window feed needs a torch.Generator or "
                                  "an injected index (feed=)")
-            i = torch.randint(0, max(state.window_count, 1), shape,
-                              generator=generator,
-                              device=generator.device).to(dev)
+            bits = torch.randint(0, 2 ** 62, shape, generator=generator,
+                                 device=generator.device).to(dev)
+            i = bits % torch.clamp(state.counts[1], min=1)
+        elif torch.is_tensor(feed):
+            i = feed.to(dev).reshape(shape)
         else:
             i = torch.as_tensor(np.asarray(feed, dtype=np.int64)
                                 .reshape(shape), device=dev)
@@ -408,19 +476,23 @@ class Trainer:
     def outer_step(self, state: TrainState,
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[Leaves] = None,
-                   feed: Optional[int] = None,
+                   feed=None,
                    pg: Optional[dict] = None,
                    starts: Optional[torch.Tensor] = None,
                    prop: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
-        """One outer iteration, updating ``state`` in place.  Returns the
-        nll, detached ((C,) with a member axis): at the window-fed point before the Adam update, on
+        """One outer iteration, updating ``state``'s tensors in place (its
+        leaves, chain, window and counts keep their addresses, and nothing
+        is read back to the host, so ``utils/graphs.py`` can capture it).
+        Returns the nll, detached ((C,) with a member axis): at the
+        window-fed point before the Adam update, on
         that gradient's window and inter-layer draw (trainer.py:430), or
         full batch and mean-propagated after the sampler phase when there
         is no Adam leaf (C7, :434).  ``noise`` (path → (21, ...)), ``feed``,
         ``pg`` (one sweep's draws, ``particle_gibbs.pg_draws``), ``starts``
         and ``prop`` (``grad_draws``: one entry per gradient evaluation, the
         21 sub-steps' first, then Adam's) replace the draws from
-        ``generator``."""
+        ``generator``; ``feed`` is an int, an array or a device tensor of
+        the member shape."""
         n_evals = (len(SUBSTEP_FLAGS) if self.has_sghmc else 0) \
             + int(self.has_adam)
         drawn = self.grad_draws(n_evals, generator, state.params.x) if (
@@ -430,7 +502,6 @@ class Trainer:
             starts)
         prop = (drawn.get("prop") if prop is None
                 else [self._share(p) for p in prop])
-        m = len(self.lead)
         if self.has_sghmc:
             if noise is None:   # the 21 sub-steps' normals, drawn up front
                 noise = self._sampler_normals(
@@ -438,26 +509,37 @@ class Trainer:
                     len(SUBSTEP_FLAGS))
             else:
                 noise = self._share_tree(noise)
-            state.params, state.sghmc = self._sghmc_phase(
+            params, sghmc = self._sghmc_phase(
                 state.params, state.sghmc, noise, starts, prop)
-            # Window snapshot as a ring buffer (base_model.py:927-933).
-            slot = (slice(None),) * m + (state.step % self.cfg.window_size,)
-            sub = self.subset.split(state.params)
+            sub = self.subset.split(params)
             with torch.no_grad():
+                _assign(self.subset.split(state.params), sub)
+                state.sghmc.assign_(sghmc)
+                # Window snapshot as a ring buffer (base_model.py:927-933),
+                # slot step % window_size, the count capped at its size.
+                slot = state.counts[:1] % self.cfg.window_size
+                m = len(self.lead)
                 for k, w in state.window.items():
-                    w[slot] = sub[k]
-            state.window_count = min(state.window_count + 1,
-                                     self.cfg.window_size)
+                    w.index_copy_(m, slot, sub[k].unsqueeze(m))
+                state.counts[1:].add_(1).clamp_(max=self.cfg.window_size)
         if self.pg_fn is not None and self.cfg.case_config.x_pg:
-            state.params = self._pg(state.params, generator, pg)
+            with torch.no_grad():
+                state.params.x.copy_(self._pg(state.params, generator, pg).x)
         if self.has_adam:
             feed_params = (self._feed_params(state, generator, feed)
                            if self.has_sghmc else state.params)
             start, eps = self._eval_draws(starts, prop, n_evals - 1)
             group = state.adam.param_groups[0]["params"]
+            # The gradient is taken at fresh aliases of the Adam leaves: an
+            # autograd graph made outside the step may hold the leaves' own
+            # grad accumulators, bound to the stream it ran on.
+            leaves = feed_params.leaves()
+            alias = {k: leaves[k].detach().requires_grad_(True)
+                     for k in self.adam_paths}
             with torch.enable_grad():
-                nll = self.train_nll(feed_params, None, start, eps)
-                grads = grads_of(nll, group)
+                nll = self.train_nll(GPSSMParams.from_leaves(
+                    {**leaves, **alias}), None, start, eps)
+                grads = grads_of(nll, list(alias.values()))
             grads = self._reduce_grads(self.adam_paths, grads)
             for p, g in zip(group, sanitize_grads(grads,
                                                   self.cfg.sghmc_grad_clip)):
@@ -466,13 +548,15 @@ class Trainer:
         else:
             with torch.no_grad():
                 nll = self.train_nll(state.params)
-        state.step += 1
+        with torch.no_grad():
+            state.counts[:1].add_(1)
         return self._reduce_nll(nll.detach())
 
     def run(self, state: TrainState, num_iterations: int,
             chunk_size: int = 500, nan_check: bool = True,
             generator: Optional[torch.Generator] = None,
-            draws: Optional[Iterable[dict]] = None
+            draws: Optional[Iterable[dict]] = None,
+            capture: Optional[bool] = None
             ) -> Tuple[TrainState, torch.Tensor]:
         """Run ``num_iterations`` outer iterations (the reference runs
         2×cfg.iterations, models.py:142).  Returns (state, nll_trace).
@@ -482,16 +566,29 @@ class Trainer:
         ``draws``, one dict of ``outer_step`` keywords (``noise``, ``feed``,
         ``pg``, ``starts``, ``prop``) per iteration, replaces it.
         ``nan_check``: per chunk of ``chunk_size`` iterations, raise with
-        the failing iteration index and a finite-by-block diagnosis."""
+        the failing iteration index and a finite-by-block diagnosis.
+
+        ``capture``: replay one captured iteration from a CUDA graph
+        (``utils/graphs.py``, the counterpart of JAX's jitted scan), with
+        one host read a chunk, for the NaN check.  None (the default)
+        captures on the card and runs eagerly on the CPU and under a mesh;
+        True raises where it cannot capture; False runs ``outer_step``
+        eagerly.  Both give the same numbers."""
+        capture = self.capture_mode(state, capture)
         draws = iter(draws) if draws is not None else None
         traces = []
         done = 0
         while done < num_iterations:
             n = min(chunk_size, num_iterations - done)
-            nlls = self._gather_trace(torch.stack([
-                self.outer_step(state, generator,
-                                **(next(draws) if draws is not None else {}))
-                for _ in range(n)]))
+            if capture:
+                nlls = self._replay(state, generator, draws, n)
+            else:
+                nlls = torch.stack([
+                    self.outer_step(state, generator,
+                                    **(next(draws) if draws is not None
+                                       else {}))
+                    for _ in range(n)])
+            nlls = self._gather_trace(nlls)
             if nan_check and not bool(torch.isfinite(nlls).all()):
                 self._raise_non_finite(nlls, done, state)
             traces.append(nlls)
@@ -501,6 +598,46 @@ class Trainer:
                                       dtype=state.params.x.dtype,
                                       device=state.params.x.device)
         return state, torch.cat(traces)
+
+    def capture_mode(self, state: TrainState, capture: Optional[bool]
+                     ) -> bool:
+        """Whether ``run`` and ``eval.rollout.thin_posterior`` replay a CUDA
+        graph: by default on the card, never on the CPU or under a mesh
+        (gloo collectives cannot be captured; they run eagerly there)."""
+        on_card = state.params.x.device.type == "cuda"
+        if capture is None:
+            return on_card and self.mesh is None
+        if capture and self.mesh is not None:
+            raise ValueError("capture=True under a mesh: its collectives are "
+                             "not captured, so a meshed trainer runs "
+                             "eagerly (capture=None or False)")
+        if capture and not on_card:
+            raise ValueError("capture=True needs the state on a CUDA device; "
+                             "the CPU runs the step eagerly")
+        return bool(capture)
+
+    def _replay(self, state: TrainState, generator, draws, n: int
+                ) -> torch.Tensor:
+        """n iterations of the captured step: each copies its injected
+        draws into the graph's static inputs and replays it.  One graph a
+        trainer, captured again when the state, the generator or the
+        draws' shapes change."""
+        from ffvd_tpu_torch.utils import graphs   # utils/ imports this module
+        dev = state.params.x.device
+        g = getattr(self, "_graph", None)
+        fp = graphs.train_fingerprint(self, state, generator)
+        parts = []
+        for _ in range(n):
+            d = graphs.to_device(next(draws) if draws is not None else {},
+                                 dev, self._whole_lead() or (1,))
+            if g is None or g.fp != fp or g.sig != graphs.signature(d):
+                if g is not None:
+                    parts.append(g.flush())
+                g = self._graph = graphs.TrainGraph(self, state, generator, d)
+            parts.append(g.step(d))
+            fp = g.fp       # a warm-up may have given Adam its moments
+        parts.append(g.flush())
+        return torch.cat([p for p in parts if p is not None])
 
     def _raise_non_finite(self, nlls: torch.Tensor, done: int,
                           state: TrainState):

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ffvd_tpu_torch.model import conditionals as cond
@@ -49,7 +50,7 @@ def _scale64(s):
     tensor (masked windows)."""
     if torch.is_tensor(s):
         return _f64(s)
-    return float(torch.tensor(s, dtype=torch.float32))
+    return float(np.float32(s))
 
 
 def ds_precal(kernel_type: str, kparams: KernelParams, z: torch.Tensor,

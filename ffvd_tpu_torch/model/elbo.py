@@ -101,8 +101,7 @@ def elbo_terms(params: GPSSMParams, data: SSMData, *,
     red = cond.no_reduce if reduce is None else reduce
     mask = None if data.mask is None else data.mask[t0:t1]
     if mask is None:
-        y_n = torch.tensor(float(n), dtype=params.x.dtype,
-                           device=params.x.device)
+        y_n = float(n)     # a Python number: no host-to-device copy
     else:
         y_n = red(torch.sum(mask))
     if eps is not None and rows is not None:
@@ -192,8 +191,7 @@ def windowed_elbo_terms(params: GPSSMParams, data: SSMData,
             at = torch.clamp(idx - s, min=0, max=window_n - 1)
             eps = [e.index_select(0, at) for e in eps]
     if data.mask is None:
-        y_n = torch.tensor(float(n), dtype=dt, device=dev)
-        batch = torch.tensor(float(window_n), dtype=dt, device=dev)
+        y_n, batch = float(n), float(window_n)
         weight = inside
         gram_scale = float(n) / float(window_n)
     else:
@@ -270,10 +268,12 @@ def _assemble(params, x, y, ctrl, mask, y_n, batch, gram_scale, kernel_type,
     terms: Dict[str, torch.Tensor] = {}
     if u_collapse:
         if collapse_precision == "ds64":
-            term1, term2, trace = ds_collapsed_terms(
+            # float32 out, taken on in the params' dtype
+            term1, term2, trace = (t.to(params.x.dtype) for t in
+                                   ds_collapsed_terms(
                 kernel_type, params.kernel, params.z, xd, xc, params.log_q,
                 jitter=jitter, mask=mask, gram_scale=gram_scale,
-                reduce=reduce)
+                reduce=reduce))
         else:
             pre = cond.kernel_precal(kernel_type, params.kernel, params.z,
                                      jitter)

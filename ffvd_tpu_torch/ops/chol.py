@@ -3,12 +3,15 @@
 Counterpart of ``ffvd_tpu/ops/chol.py``.  ``torch.linalg.cholesky`` raises on
 a non-PD block where JAX's returns NaN, so the factorisation here is
 ``torch.linalg.cholesky_ex``: a batch element is "bad" when its ``info`` is
-non-zero or its factor is non-finite, and only then is it refactorised with
-an escalated jitter.  Checking for a bad element reads one flag back to the
-host; the healthy path pays one factorisation.  Under ``torch.func.vmap``
-(the chain and dataset axes, ``parallel/``) both factorisations carry a
-``vmap`` rule that runs the impl once on the folded batch: one host read
-for all mapped elements, and a retry only where an element failed.
+non-zero or its factor is non-finite.  The matrix and its two escalated
+retries are factorised together, in one ``cholesky_ex`` on the stacked
+batch, and each element takes its first good factor (``torch.where``): the
+per-element semantics of JAX's ``where`` with no branch, so nothing is read
+back to the host and the factorisation can be captured in a CUDA graph.
+The cost is two extra factorisations in the same launch.  Under
+``torch.func.vmap`` (the chain and dataset axes, ``parallel/``) both
+factorisations carry a ``vmap`` rule that runs the impl once on the folded
+batch.
 
 The JAX package's ``blocked_tri_inv`` works around the TPU's sequential
 triangular solve and is never taken at M < 256; here the triangular inverse
@@ -33,27 +36,23 @@ def _per_bad(l: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
 
 
 def _psd_cholesky_impl(mat: torch.Tensor, retry_jitter: float) -> torch.Tensor:
-    """Factorise with up to two escalated-jitter retries, per batch element:
+    """Factorise with two escalated-jitter retries, per batch element:
     first the reference's ABSOLUTE 1e-4 jitter (conditionals_multi_output.py:
     30), then 1e-4·max(mean diag, 1), which restores positive definiteness
-    at any diagonal scale.  An element that fails all three comes back NaN,
-    as a failed JAX Cholesky does."""
-    l, info = torch.linalg.cholesky_ex(mat)
-    bad = _per_bad(l, info)
-    if not bool(bad.any()):
-        return l
+    at any diagonal scale.  All three attempts are one ``cholesky_ex`` of the
+    stacked batch; the first good one wins, and an element that fails all
+    three comes back NaN below the diagonal, as a failed JAX Cholesky
+    does."""
     eye = torch.eye(mat.shape[-1], dtype=mat.dtype, device=mat.device)
-    l1, info1 = torch.linalg.cholesky_ex(mat + retry_jitter * eye)
-    l = torch.where(bad[..., None, None], l1, l)
-    bad = bad & _per_bad(l1, info1)
-    if bool(bad.any()):
-        diag_scale = torch.diagonal(mat, dim1=-2, dim2=-1).mean(dim=-1)
-        rel = 1e-4 * torch.clamp(diag_scale, min=1.0)
-        l2, info2 = torch.linalg.cholesky_ex(mat + rel[..., None, None] * eye)
-        l = torch.where(bad[..., None, None], l2, l)
-        bad = bad & _per_bad(l2, info2)
-        l = torch.where(bad[..., None, None], torch.full_like(l, torch.nan), l)
-    return l
+    diag_scale = torch.diagonal(mat, dim1=-2, dim2=-1).mean(dim=-1)
+    rel = 1e-4 * torch.clamp(diag_scale, min=1.0)
+    tries, info = torch.linalg.cholesky_ex(torch.stack(
+        [mat, mat + retry_jitter * eye, mat + rel[..., None, None] * eye]))
+    bad = _per_bad(tries, info)[..., None, None]
+    failed = torch.full_like(tries[2], torch.nan).tril()   # as JAX's
+    l = torch.where(bad[2], failed, tries[2])
+    l = torch.where(bad[1], l, tries[1])
+    return torch.where(bad[0], l, tries[0])
 
 
 def _tri_inv(l: torch.Tensor) -> torch.Tensor:
@@ -72,9 +71,8 @@ class _PSDCholesky(torch.autograd.Function):
     Cholesky pullback Σ̄ = L⁻ᵀ Φ(Lᵀ L̄) L⁻¹ from the saved factor, so no NaN
     of a failed first attempt can reach a gradient.  Under
     ``torch.func.vmap`` the rule ``vmap`` folds the mapped dim into the
-    batch and factorises once, so the retry check stays one host read for
-    every mapped element (``ffvd_tpu/ops/chol.py::_psd_cholesky_batchsafe``
-    keeps it behind a real branch in the same way)."""
+    batch and factorises once for every mapped element
+    (``ffvd_tpu/ops/chol.py::_psd_cholesky_batchsafe``)."""
 
     @staticmethod
     def forward(mat, retry_jitter):

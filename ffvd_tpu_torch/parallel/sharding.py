@@ -409,9 +409,9 @@ def map_state(state: TrainState, fn: Callable) -> TrainState:
         f: {k: fn(k, v) for k, v in getattr(state.sghmc, f).items()}
         for f in ("xi", "g", "g2", "p")})
     return TrainState(params=GPSSMParams.from_leaves(leaves), adam=adam,
-                      step=state.step, sghmc=sghmc,
+                      sghmc=sghmc,
                       window={k: fn(k, w) for k, w in state.window.items()},
-                      window_count=state.window_count)
+                      counts=state.counts.clone())
 
 
 def shard_chain_state(state: TrainState, mesh) -> TrainState:

@@ -39,8 +39,8 @@ from typing import Callable, List, Optional
 import torch
 import torch.distributed as dist
 
-from ffvd_tpu_torch.inference.sghmc import SGHMCState
-from ffvd_tpu_torch.inference.trainer import TrainState
+from ffvd_tpu_torch.inference.trainer import (TrainState,
+                                              adam_steps_in_leaf_dtype)
 
 CHECKPOINT_FORMAT = 1
 """Layout of a saved training state and the meaning of its generator
@@ -133,19 +133,23 @@ class CheckpointManager:
             share = lambda path, t: t
         else:
             share = lambda path, t: trainer._share(t, path).clone()
-        dev = state.params.x.device
         with torch.no_grad():
             for k, v in state.params.leaves().items():
                 v.copy_(share(k, payload["params"][k]))
         if state.adam is not None:
             state.adam.load_state_dict(_share_adam(payload["adam"], state,
                                                    share))
-        if payload["sghmc"] is not None:
-            state.sghmc = SGHMCState(**{
-                f: {k: share(k, v).to(dev) for k, v in leaves.items()}
-                for f, leaves in payload["sghmc"].items()})
-        state.window = {k: share(k, v).to(dev)
-                        for k, v in payload["window"].items()}
+            adam_steps_in_leaf_dtype(state.adam)
+        # In place, so the state keeps its addresses (a captured step of
+        # the trainer replays them; Adam's moments above are new tensors,
+        # and its next run captures again).
+        with torch.no_grad():
+            if payload["sghmc"] is not None:
+                for f, leaves in payload["sghmc"].items():
+                    for k, v in leaves.items():
+                        getattr(state.sghmc, f)[k].copy_(share(k, v))
+            for k, v in payload["window"].items():
+                state.window[k].copy_(share(k, v))
         state.window_count = payload["window_count"]
         state.step = payload["step"]
         if generator is not None:
@@ -161,7 +165,13 @@ def _share_adam(sd: dict, state: TrainState, share: Callable) -> dict:
     """Adam's whole ``state_dict`` with each moment cut to this process's
     share (the step counts are one for all members)."""
     paths = state.adam_paths()
-    return {"param_groups": sd["param_groups"],
+    # The restoring Adam keeps its own ``capturable``: on the card the step
+    # count lives on the device, on the CPU on the host, and a checkpoint
+    # moves between the two.
+    groups = [{**g, "capturable": own["capturable"]}
+              for g, own in zip(sd["param_groups"],
+                                state.adam.param_groups)]
+    return {"param_groups": groups,
             "state": {i: {f: (v if f == "step" else share(paths[i], v))
                           for f, v in st.items()}
                       for i, st in sd["state"].items()}}

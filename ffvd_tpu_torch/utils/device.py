@@ -12,7 +12,8 @@ def resolve_device(device=None) -> torch.device:
     default raises instead of running on the CPU quietly.
 
     Also turns TF32 off: the JAX package computes every matmul at
-    precision="highest", and the port's fp32 must be full fp32 too."""
+    precision="highest", and the port's fp32 must be full fp32 too; on the
+    card it names cuSOLVER for the factorisations."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda" if device is None else device)
@@ -22,6 +23,10 @@ def resolve_device(device=None) -> torch.device:
             "cpu) to run on the CPU")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
+    if device.type == "cuda":
+        # cuSOLVER's Cholesky reads nothing back to the host (MAGMA's does):
+        # eager and captured steps (utils/graphs.py) factorise alike.
+        torch.backends.cuda.preferred_linalg_library("cusolver")
     return device
 
 

@@ -1,0 +1,226 @@
+"""CUDA graphs of the training iteration and the thinning sub-step.
+
+The JAX package runs its loops as compiled device programs: ``Trainer``'s
+``jax.jit(lax.scan(outer_step))`` over 500 iterations with one host read
+a chunk (``ffvd_tpu/inference/trainer.py:261,443-471``), and the thinning
+scan of ``build_collect`` (``ffvd_tpu/eval/rollout.py:191-221``).  The
+card's counterpart is a CUDA graph: one iteration's few hundred kernel
+launches are captured once and replayed as one launch.
+
+A graph replays fixed addresses, with every Python value of the capture
+baked in.  So the step it replays (``Trainer.outer_step``, the sampler
+sub-step of ``eval.rollout.thin_posterior``):
+
+- reads its random numbers from a registered ``torch.Generator`` on the
+  card (its Philox offset advances on every replay, as in eager runs), or
+  from static input buffers into which injected draws are copied before
+  each replay;
+- reads and writes its state in place, the step and window counts
+  included (``TrainState.counts``), and writes its nll into a static trace;
+- reads nothing back to the host: the Cholesky retry is branch-free
+  (``ops/chol.py``), Adam is ``capturable`` and the counts stay on the card.
+
+The recipe is PyTorch's whole-network capture: warm-up iterations on a side
+stream (real iterations, counted in the trace), one capture, then replays.
+A capture that fails raises; nothing falls back to eager.  Eager and
+captured runs give the same numbers: they run the same code.  On the CPU
+the same body runs plainly (``capture=False``), which is how the tests hold
+it against eager ``outer_step``.
+"""
+
+from __future__ import annotations
+
+import gc
+import time
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+# Eager iterations before the capture: the first creates Adam's moments and
+# the libraries' handles and workspaces on the side stream, the second runs
+# with all of them in place.
+WARMUP = 2
+# Iterations a training graph's static nll trace holds before ``run``
+# copies it out (JAX's default chunk).
+TRACE_CAP = 500
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` on every tensor of a dict / list / tuple tree (None kept)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def _leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def signature(tree) -> tuple:
+    """The shapes and dtypes of a tree's tensors, in order, with its keys:
+    a graph's static inputs serve the draws of one signature."""
+    if isinstance(tree, dict):
+        return tuple((k, signature(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return tuple(signature(v) for v in tree)
+    return None if tree is None else (tuple(tree.shape), tree.dtype)
+
+
+def to_device(draws: dict, device, feed_shape: Tuple[int, ...]) -> dict:
+    """``outer_step``'s draw keywords as tensors on ``device``: a ``feed``
+    index of ints becomes an int64 tensor of the member shape."""
+    def as_t(v):
+        return v.to(device) if torch.is_tensor(v) else torch.as_tensor(
+            np.asarray(v), device=device)
+    out = {}
+    for k, v in draws.items():
+        if k == "feed" and v is not None and not torch.is_tensor(v):
+            v = np.asarray(v, dtype=np.int64).reshape(feed_shape)
+        out[k] = tree_map(as_t, v)
+    return out
+
+
+def fingerprint(generator, tensors) -> tuple:
+    """What a captured step is bound to: the generator it draws from and
+    the addresses of the tensors it reads and writes."""
+    return id(generator), tuple(t.data_ptr() for t in tensors)
+
+
+def data_tensors(trainer) -> list:
+    return [v for v in vars(trainer.data).values() if torch.is_tensor(v)]
+
+
+def train_fingerprint(trainer, state, generator) -> tuple:
+    """A training step's binding: the state's tensors and the data."""
+    return fingerprint(generator, state.tensors() + data_tensors(trainer))
+
+
+class StepGraph:
+    """``body(inputs)``, a step that works in place on tensors of fixed
+    address, run plainly (``capture=False``) or replayed from a CUDA graph.
+    Each call copies ``inputs`` (a tree of the first call's signature) into
+    the static buffers that ``body`` reads, then runs one step: the first
+    ``WARMUP`` calls eagerly on a side stream, the next captures the graph
+    and replays it, every later one replays it."""
+
+    def __init__(self, body: Callable, inputs, capture: bool,
+                 generator: Optional[torch.Generator] = None):
+        if capture and generator is not None \
+                and generator.device.type != "cuda":
+            raise ValueError(
+                "a captured step draws on the card: its torch.Generator must "
+                f"be a CUDA generator, not one on {generator.device} (it "
+                "would draw on the host and copy to the card)")
+        self.body = body
+        self.static = tree_map(torch.clone, inputs)
+        self.capture = capture
+        self.generator = generator
+        self.graph = None
+        self.warm_left = WARMUP
+        self.stream = None
+        self.replays = 0
+        self.capture_s = None        # host seconds to capture and instantiate
+        self.pool_bytes = None       # device memory the capture reserved
+
+    @property
+    def captured(self) -> bool:
+        return self.graph is not None
+
+    def __call__(self, inputs) -> None:
+        for dst, src in zip(_leaves(self.static), _leaves(inputs)):
+            dst.copy_(src)
+        if not self.capture:
+            self.body(self.static)
+            return
+        if self.graph is None:
+            if self.stream is None:
+                self.stream = torch.cuda.Stream()
+            if self.warm_left:
+                self._warm_up()
+                return
+            self._capture()
+        self.graph.replay()
+        self.replays += 1
+
+    def _warm_up(self) -> None:
+        current = torch.cuda.current_stream()
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            self.body(self.static)
+        current.wait_stream(self.stream)
+        self.warm_left -= 1
+
+    def _capture(self) -> None:
+        # MAGMA's Cholesky synchronises inside; cuSOLVER's does not.
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        # An unreachable graph of an earlier capture is freed by the cyclic
+        # collector, and freeing it during this capture would end it: collect
+        # now, and not while capturing.
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=self.stream):
+                self.body(self.static)
+        finally:
+            gc.enable()
+        torch.cuda.synchronize()
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.graph = graph
+
+
+class TrainGraph:
+    """``trainer.outer_step(state, generator, **draws)`` as a ``StepGraph``
+    (captured on the card, plain on the CPU) whose nll goes into a static
+    trace of ``TRACE_CAP`` rows at a device position: ``step`` runs one
+    iteration, ``flush`` copies out the rows filled since the last flush."""
+
+    def __init__(self, trainer, state, generator, draws: dict,
+                 capture: Optional[bool] = None):
+        self.trainer, self.state, self.generator = trainer, state, generator
+        x = state.params.x
+        self.pos = torch.zeros(1, dtype=torch.int64, device=x.device)
+        self.trace = x.new_zeros((TRACE_CAP,) + tuple(trainer.lead))
+        self.filled = 0
+
+        def body(d):
+            nll = trainer.outer_step(state, generator, **d)
+            self.trace.index_copy_(0, self.pos, nll.unsqueeze(0))
+            self.pos.add_(1)
+
+        if capture is None:
+            capture = trainer.capture_mode(state, None)
+        self.graph = StepGraph(body, draws, capture, generator)
+        # What it serves: draws of this signature, these addresses.
+        self.sig = signature(draws)
+        self.fp = train_fingerprint(trainer, state, generator)
+
+    def step(self, draws: dict) -> Optional[torch.Tensor]:
+        """One iteration; returns the full trace first when it is full."""
+        out = self.flush() if self.filled == TRACE_CAP else None
+        self.graph(draws)
+        self.filled += 1
+        if not self.graph.captured:   # a warm-up may have made Adam's state
+            self.fp = train_fingerprint(self.trainer, self.state,
+                                        self.generator)
+        return out
+
+    def flush(self) -> Optional[torch.Tensor]:
+        if not self.filled:
+            return None
+        out = self.trace[:self.filled].clone()
+        self.pos.zero_()
+        self.filled = 0
+        return out
