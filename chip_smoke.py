@@ -32,10 +32,11 @@ that each print one JSON line:
    mixing statistics, and one sweep's recursion and backtrack run under
    ``torch.cuda.set_sync_debug_mode("error")``;
 4d. the LinearK path in fp32: ballbeam C4 with ``kernel_type="LinearK"``
-   for 20 iterations and ``evaluate()`` (the torch recursion, no kernel);
+   for 20 iterations and ``evaluate()`` (the torch recursion, its step
+   replayed from a CUDA graph, no kernel);
 4e. the deep path in fp32: flutter C4 with ``n_layers=2`` (one hidden
    layer of the head's shapes) for 250 iterations and ``evaluate()`` (the
-   deep torch recursion, no kernel);
+   deep torch recursion, replayed likewise, no kernel);
 4f. the window path in fp32: the kink benchmark at N=5000 from a cold
    start, C4 with ``minibatch_size=256`` for 200 iterations, the full
    objective before and after, 20 full-batch iterations for comparison,
@@ -104,13 +105,30 @@ that each print one JSON line:
    datasets × M=512; capture seconds and graph pool MiB; and the
    branch-free Cholesky retry's cost against one factorisation at C4's
    shapes, timed inside a graph;
+10. the batched recursion and the batched sweep: fp64 on the card, the
+   LinearK and deep rollouts with ``capture=False`` against
+   ``capture=True`` (one captured step replayed a step) within rtol 1e-12
+   for deep flutter C4 (iid, one group of 10 rows), LinearK ballbeam C4
+   (iid), deep flutter C5 (thinned, 4 groups of one) and 4 LinearK chains
+   (``multichain_moments``, 4 groups of 10), each recursion once more
+   under sync debug "error"; 8 ballbeam C6 chains (P=100) for 3
+   iterations, the batched sweep against per-member sweeps (the swept x
+   and the nll trace) and the captured batched step against the eager
+   one (the whole state) within rtol 1e-12, 2 more replays under
+   "error".  Then fp32 times in this call: ``evaluate()`` eager and
+   captured for deep flutter C4, LinearK ballbeam C4 and deep flutter C5
+   (10 × 32 thinning), the captured step's kernels and busy share; 8 C6
+   chains captured with per-member sweeps against the batched sweep,
+   beside phase 9's one chain, with kernels a replay, busy share, capture
+   seconds and graph pool MiB;
 6. kernel timing with CUDA events at S=10 and S=64, shared and per-sample
    inputs, with the launch plan; fp32 at 80 per-sample rows and at M=512
    (global plan); and one ``{"kernels": [...]}`` line.
 
-Every training ``run`` and thinning above takes the default, a replayed
-CUDA graph on the card; phase 9 and the profile script
-(``scripts/profile_torch_train.py``) set ``capture=False`` to compare.
+Every training ``run``, thinning and LinearK or deep rollout above takes
+the default, a replayed CUDA graph on the card; phases 9 and 10 and the
+profile script (``scripts/profile_torch_train.py``) set ``capture=False``
+to compare.
 
 The last lines are the card's name and power limit, the kernels line, and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  Without
@@ -757,8 +775,8 @@ def phase_pg_path(torch, ro, card):
     stats = {k: float(v) for k, v in stats.items()}
 
     # The recursion and backtrack must not read back to the host (capture
-    # in a CUDA graph needs that); kernel_precal's retry check and the
-    # draws are outside.
+    # in a CUDA graph needs that); kernel_precal and the draws are timed
+    # apart above.
     ref_cfg = dataclasses.replace(cfg, pg_ancestor_trace=False)
     ref_draws = pg.pg_draws(ref_cfg, params, gen)
     torch.cuda.synchronize()
@@ -1652,6 +1670,264 @@ def phase_captured(torch, card, main):
          holds=holds, rates_fp32=rates, cholesky_retry=retry,
          seconds=time.time() - t0)
     return {"holds": holds, "rates": rates}
+
+
+def _collected(torch):
+    """Collect the cyclic garbage (an earlier phase's trainers and their
+    graphs) and synchronise, so that freeing it is not timed."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+
+
+def _per_member_trainer(torch):
+    """A ``MultiChainTrainer`` whose C6 sweeps run one member at a time,
+    as ``BatchedTrainer._pg`` ran them before the sweep was batched: the
+    reference of phase 10's sweep hold and rates."""
+    import dataclasses
+    from ffvd_tpu_torch.parallel import MultiChainTrainer
+    from ffvd_tpu_torch.parallel.sharding import member
+
+    class PerMember(MultiChainTrainer):
+        def _pg(self, params, generator, pg):
+            xs = [self.pg_fn(member(params, i), generator, self.data,
+                             draws=None if pg is None else pg[i]).x
+                  for i in range(self.n)]
+            return dataclasses.replace(params, x=torch.stack(xs))
+    return PerMember
+
+
+def _recursion_holds(torch):
+    """Phase 10's recursion holds, fp64: each cell's rollouts with
+    ``capture=False`` (the step run eagerly) and ``capture=True`` (one
+    captured step, replayed), from equal CUDA generators; one replay a
+    step; then the captured recursion once more under sync debug
+    "error"."""
+    import dataclasses
+    import numpy as np
+    from ffvd_tpu_torch.api import FFVDModel
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.eval.ensemble import multichain_moments
+    from ffvd_tpu_torch.eval.rollout import collect_posterior
+    from ffvd_tpu_torch.parallel import MultiChainTrainer
+    from ffvd_tpu_torch.utils.graphs import WARMUP
+    f64 = torch.float64
+    gen = lambda s: torch.Generator(device="cuda").manual_seed(s)
+    out = {}
+
+    def hold(name, tr, run):
+        a, b = run(False), run(True)
+        pairs = [(torch.as_tensor(np.asarray(x)), torch.as_tensor(
+            np.asarray(y))) if not torch.is_tensor(x) else (x, y)
+            for x, y in zip(a, b)]
+        worst = max(_rel_diff(torch, x, y) for x, y in pairs)
+        same = all(torch.equal(x, y) for x, y in pairs)
+        check(worst <= 1e-12, f"{name}: captured vs eager {worst}")
+        g = tr._rollout_graph
+        steps, replays = g.xs.shape[2], g.graph.replays
+        check(g.graph.captured and replays == steps - WARMUP,
+              f"{name}: {replays} replays for {steps} steps")
+        _no_syncs(torch, lambda: g.run(g.static))
+        check(g.graph.replays == replays + steps,
+              f"{name}: a step is not one replay")
+        out[name] = {"max_rel_diff": worst, "bit_equal": same,
+                     "groups_rows": list(g.xs.shape[:2]), "steps": steps,
+                     "replays_under_sync_error": steps, **_graph_info(g.graph)}
+
+    deep = FFVDModel(FFVDConfig(dataset="flutter", case=4, n_layers=2),
+                     device="cuda", dtype=f64)
+    hold("deep_C4_iid", deep.trainer, lambda cap: collect_posterior(
+        deep.trainer, deep.state, deep.dataset.n_test, generator=gen(1),
+        capture=cap)[:2])
+    lin = FFVDModel(FFVDConfig(dataset="ballbeam", case=4,
+                               kernel_type="LinearK"), device="cuda",
+                    dtype=f64)
+    hold("LinearK_C4_iid", lin.trainer, lambda cap: collect_posterior(
+        lin.trainer, lin.state, lin.dataset.n_test, generator=gen(2),
+        capture=cap)[:2])
+    # thinned: 4 samples, 4 sub-steps apart (the protocol's 10 × 32 is
+    # timed in the rates below)
+    d5 = FFVDModel(dataclasses.replace(
+        FFVDConfig(dataset="flutter", case=5, n_layers=2),
+        num_posterior_samples=4, posterior_sample_spacing=4),
+        device="cuda", dtype=f64)
+    hold("deep_C5_thinned", d5.trainer, lambda cap: collect_posterior(
+        d5.trainer, d5.state, d5.dataset.n_test, generator=gen(3),
+        thin_generator=gen(4), capture=cap)[:2])
+    ds, data, p0 = _cuda_data(torch, "ballbeam", f64)
+    mct = MultiChainTrainer(FFVDConfig(dataset="ballbeam", case=4,
+                                       kernel_type="LinearK"), data, 4)
+    state = mct.init_state(mct.stack_params(p0, gen(5)))
+    hold("LinearK_C4x4_chains", mct, lambda cap: [
+        a for ch in multichain_moments(mct, state, ds.n_test,
+                                       generator=gen(6), capture=cap)[0]
+        for a in ch])
+    return out
+
+
+def _sweep_holds(torch):
+    """Phase 10's sweep holds, fp64: 8 ballbeam C6 chains (P=100) for 3
+    iterations from equal CUDA generators, the batched sweep against the
+    per-member sweeps (both eager): the swept trajectories x and the nll
+    trace within rtol 1e-12, the rest of the state recorded; and the
+    captured batched step against the eager one, the whole state within
+    rtol 1e-12; then 2 more replays under sync debug "error".
+
+    The batched and the per-member sweeps are one computation, but not the
+    same kernels: cuBLAS and cuSOLVER round a batch of 32 blocks apart
+    from 8 batches of 4 (Lm⁻¹ 6.9e-16 apart), x ends ≈1e-13 apart and the
+    gradient of z ≈40 times that, so Adam's moments of z differ by
+    1.4-3.5e-12 (read on an H100 80GB HBM3 at 700 W).  The hold reads the
+    sweep's own output."""
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.inference.particle_gibbs import make_pg_fn
+    from ffvd_tpu_torch.parallel import MultiChainTrainer
+    from ffvd_tpu_torch.utils.graphs import WARMUP
+    f64 = torch.float64
+    gen = lambda s: torch.Generator(device="cuda").manual_seed(s)
+    cfg = FFVDConfig(dataset="ballbeam", case=6)
+    _, data, p0 = _cuda_data(torch, "ballbeam", f64)
+    batched = MultiChainTrainer(cfg, data, 8, pg_fn=make_pg_fn(cfg))
+    per = _per_member_trainer(torch)(cfg, data, 8, pg_fn=make_pg_fn(cfg))
+    stacked = batched.stack_params(p0, gen(7))
+    a, b, c = (tr.init_state(stacked) for tr in (per, batched, batched))
+    t0 = time.time()
+    _, ta = per.run(a, 3, generator=gen(8), capture=False)
+    t1 = time.time()
+    _, tb = batched.run(b, 3, generator=gen(8), capture=False)
+    t2 = time.time()
+    gc = gen(8)
+    _, tc = batched.run(c, 3, generator=gc, capture=True)
+    torch.cuda.synchronize()
+    sweep = {"x": _rel_diff(torch, b.params.x, a.params.x),
+             "nll_trace": _rel_diff(torch, tb, ta)}
+    check(max(sweep.values()) <= 1e-12,
+          f"C6x8: batched vs per-member sweeps {sweep}")
+    out = {"chains": 8, "iterations": 3,
+           "batched_vs_per_member": {
+               **sweep, "bit_equal": all(torch.equal(x, y) for x, y in zip(
+                   a.tensors(), b.tensors())),
+               "whole_state_max_rel_diff": max(
+                   _rel_diff(torch, y, x) for x, y in zip(a.tensors(),
+                                                          b.tensors()))},
+           "captured_vs_eager": _hold_equal(
+               torch, "C6x8 captured vs eager", b, c, tb, tc),
+           "per_member_eager_s": t1 - t0, "batched_eager_s": t2 - t1}
+    check(not torch.equal(b.params.x[0], b.params.x[1]),
+          "C6x8: the chains' trajectories are equal")
+    replays = batched._graph.graph.replays
+    check(replays == 3 - WARMUP, f"C6x8: {replays} replays for 3 iterations")
+    _no_syncs(torch, lambda: batched.run(c, 2, generator=gc, capture=True,
+                                         nan_check=False))
+    check(batched._graph.graph.replays == replays + 2,
+          "C6x8: an iteration is not one replay")
+    out.update(replays_under_sync_error=2,
+               **_graph_info(batched._graph.graph))
+    return out
+
+
+def _recursion_and_sweep_rates(torch, one_chain_c6):
+    """Phase 10's times, fp32, in this call: ``evaluate()`` eager
+    (``capture=False``), then captured twice (the first call warms up and
+    captures) for deep flutter C4, LinearK ballbeam C4 and deep flutter C5
+    (thinned, 10 × 32), with the captured step profiled over one
+    recursion; and 8 ballbeam C6 chains (P=100) captured, per-member sweeps
+    against the batched sweep, each with its kernels a replay and busy
+    share, beside ``one_chain_c6``, phase 9's captured C6 it/s."""
+    from ffvd_tpu_torch.api import FFVDModel
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.inference.particle_gibbs import make_pg_fn
+    from ffvd_tpu_torch.parallel import MultiChainTrainer
+    from ffvd_tpu_torch.utils.graphs import WARMUP
+    from ffvd_tpu_torch.utils.profiling import profile_window, summarize
+    out = {}
+
+    def evaluate_ms(name, cfg, fit_n):
+        t0 = time.time()
+        model = FFVDModel(cfg, device="cuda")
+        model.fit(fit_n)
+        ms = {}
+        for mode, cap in (("eager", False), ("captured_first", None),
+                          ("captured", None)):
+            model.capture = cap
+            _collected(torch)
+            t = time.time()
+            res = model.evaluate()
+            torch.cuda.synchronize()
+            ms[mode] = (time.time() - t) * 1e3
+            check(math.isfinite(res["rmse"]) and math.isfinite(res["nll"]),
+                  f"{name}: evaluate {res}")
+        g = model.trainer._rollout_graph
+        check(g.graph.captured, f"{name}: the default evaluate() did not "
+              "replay a captured step")
+        prof, wall = profile_window(lambda: g.run(g.static))
+        summ = summarize(prof, wall, g.xs.shape[2])
+        out[name] = {"evaluate_ms": ms, "speedup": ms["eager"] / ms[
+            "captured"], "seconds": time.time() - t0,
+            "rmse": res["rmse"], "nll": res["nll"],
+            "fit_iterations": fit_n, "groups_rows": list(g.xs.shape[:2]),
+            "steps": g.xs.shape[2], "recursion_ms_profiled": wall / 1e3,
+            "kernels_per_replay": summ["cuda_kernels"],
+            "device_busy_share": summ["device_busy_share"],
+            **_graph_info(g.graph)}
+
+    evaluate_ms("deep_flutter_C4", FFVDConfig(dataset="flutter", case=4,
+                                              n_layers=2), 5)
+    evaluate_ms("LinearK_ballbeam_C4", FFVDConfig(
+        dataset="ballbeam", case=4, kernel_type="LinearK"), 5)
+    evaluate_ms("deep_flutter_C5_thinned", FFVDConfig(
+        dataset="flutter", case=5, n_layers=2), 5)
+
+    cfg = FFVDConfig(dataset="ballbeam", case=6)
+    _, data, p0 = _cuda_data(torch, "ballbeam", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    c6 = {"one_chain_it_per_s_phase9": one_chain_c6}
+    for name, tr, timed, profiled in (
+            ("per_member_x8", _per_member_trainer(torch)(
+                cfg, data, 8, pg_fn=make_pg_fn(cfg)), 3, 1),
+            ("batched_x8", MultiChainTrainer(cfg, data, 8,
+                                             pg_fn=make_pg_fn(cfg)), 10, 2)):
+        state = tr.init_state(tr.stack_params(p0, gen))
+        _collected(torch)
+        t = time.time()
+        tr.run(state, WARMUP + 1, generator=gen)   # warm-ups, capture
+        first = time.time() - t
+        rate = _rate(torch, lambda n: tr.run(state, n, generator=gen), timed)
+        t = time.time()
+        prof, wall = profile_window(lambda: tr.run(state, profiled,
+                                                   generator=gen))
+        summ = summarize(prof, wall, profiled)
+        profile_s = time.time() - t
+        c6[name] = {"it_per_s": rate, "chain_it_per_s": rate * 8,
+                    "timed_iterations": timed,
+                    "first_captured_call_s": first,
+                    "kernels_per_replay": summ["cuda_kernels"],
+                    "device_busy_share": summ["device_busy_share"],
+                    "ms_per_iter_profiled": wall / 1e3 / profiled,
+                    "profile_s": profile_s,
+                    **_graph_info(tr._graph.graph)}
+        check(all(math.isfinite(v) for v in
+                  tr.run(state, 1, generator=gen)[1].flatten().tolist()),
+              f"C6 {name}: non-finite nll")
+    c6["batched_over_per_member"] = (c6["batched_x8"]["it_per_s"]
+                                     / c6["per_member_x8"]["it_per_s"])
+    out["C6x8_chains"] = c6
+    return out
+
+
+def phase_batched(torch, card, captured):
+    """Phase 10: the batched recursion and the batched sweep (see the
+    module docstring); ``captured``: phase 9's results."""
+    t0 = time.time()
+    _collected(torch)
+    recursion = _recursion_holds(torch)
+    sweep = _sweep_holds(torch)
+    rates = _recursion_and_sweep_rates(
+        torch, captured["rates"]["C6"]["captured_it_per_s"])
+    emit("batched_recursion_and_sweep", card=card,
+         recursion_holds_fp64=recursion, sweep_holds_fp64=sweep,
+         rates_fp32=rates, seconds=time.time() - t0)
+    return {"recursion": recursion, "sweep": sweep, "rates": rates}
 
 
 def phase_fp64_batched(torch):
@@ -2607,8 +2883,10 @@ def main() -> int:
     multichain = timed("multichain_path", phase_multichain_path, torch, ro,
                        card, REPORT["main_path"])
     six = timed("six_datasets_m512", phase_six_datasets, torch, ro, card)
-    timed("captured_vs_eager", phase_captured, torch, card,
-          REPORT["main_path"])
+    captured = timed("captured_vs_eager", phase_captured, torch, card,
+                     REPORT["main_path"])
+    timed("batched_recursion_and_sweep", phase_batched, torch, card,
+          captured)
     timed("fp64_train", phase_fp64_train, torch)
     timed("fp64_sampler", phase_fp64_sampler, torch)
     timed("fp64_pg", phase_fp64_pg, torch)

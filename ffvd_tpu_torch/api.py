@@ -63,8 +63,9 @@ class FFVDModel:
     def __init__(self, cfg: FFVDConfig, device=None, dtype=None, dataset=None,
                  params: Optional[GPSSMParams] = None,
                  capture: Optional[bool] = None):
-        """``capture``: train and thin by replaying CUDA graphs
-        (``Trainer.run``); None captures on the card, False runs eagerly.
+        """``capture``: train, thin and run a LinearK or deep rollout by
+        replaying CUDA graphs (``Trainer.run``, ``collect_posterior``); None
+        captures on the card, False runs eagerly.
         ``dataset``/``params`` may be injected (e.g. synthetic data from
         ``data.synthetic`` and a cold start from ``init_params_random``); by
         default the named dataset and its Factnonlin warm start load.  A

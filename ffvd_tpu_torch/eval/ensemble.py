@@ -9,7 +9,8 @@ variance (within-chain variance + the spread of predictive means), gives
 calibrated free-run uncertainty.  Chains train one after another on the
 model's device; pooling is on the host in float64 numpy (T×P arrays).
 ``multichain_moments`` takes the chains of one ``MultiChainTrainer``
-instead, trained together, and rolls all of them out in one launch.
+instead, trained together, and rolls all of them out in one launch (the
+kernel) or one batched recursion (LinearK, deep).
 """
 
 from __future__ import annotations
@@ -105,7 +106,8 @@ def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
                        generator: Optional[torch.Generator] = None,
                        thin_generator: Optional[torch.Generator] = None,
                        noise: Optional[torch.Tensor] = None,
-                       thin_noise=None):
+                       thin_noise=None, hidden_noise=None, thin_prop=None,
+                       capture: Optional[bool] = None):
     """Chain moments of a chain-stacked ``parallel.MultiChainTrainer``
     state (``ffvd_tpu/eval/ensemble.py:105-148``).  Returns (one
     ``chain_moments``-shaped tuple per chain, for ``pool_moments``; the
@@ -116,9 +118,16 @@ def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
     ``thin_noise`` path → (C, S, spacing, ...)).  The C×S rollouts are then
     one ``rollout_batched`` launch: chain c's sample s is row c·S+s, and an
     iid chain's inputs are repeated over its S rows.  LinearK and deep
-    chains roll out by ``recursion_rollout``.  ``noise`` (C, S, T, D)
-    replaces the head's rollout noise drawn from ``generator`` (a deep
-    model's inter-layer noise is drawn from it too).
+    chains roll out by one ``recursion_rollout`` of all rows, the same
+    rows: C groups of S (iid), or C×S groups of one (thinned).  ``noise``
+    (C, S, T, D) replaces the head's rollout noise drawn from
+    ``generator``, and a deep model's ``hidden_noise`` (one (C, S, T, D)
+    tensor per hidden layer) and ``thin_prop`` (one (C, S, spacing, N, D)
+    tensor per hidden layer, ``thin_posterior``'s) its inter-layer normals
+    of the rollout and of the thinning.  ``capture``, as in
+    ``Trainer.run``: by default on the card the thinning and the recursion
+    replay their captured steps; never on the CPU or under a mesh, where
+    True raises.
 
     The emission moments use each chain's params after thinning, as JAX's
     do: the rollouts came from the moved chain.
@@ -129,7 +138,8 @@ def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
     one launch whose Philox rows start at c0·S (``row_offset``), so the
     rows are those of one launch of all C×S; the rollouts are then summed
     into every process, which returns every chain's moments and its own
-    share of the thinned state.  The seed is drawn on every process."""
+    share of the thinned state.  The seed is drawn on every process.  A
+    recursion's rows are cut the same way and run eagerly."""
     from ffvd_tpu_torch.eval.rollout import (posterior_inputs,
                                              recursion_rollout,
                                              rollout_controls, thin_posterior)
@@ -138,7 +148,7 @@ def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
     from ffvd_tpu_torch.ops.kernels import KernelParams
     from ffvd_tpu_torch.parallel.distributed import all_sum_flat
     from ffvd_tpu_torch.parallel.sharding import (axis_index, gather_leaves,
-                                                  member)
+                                                  member, stack_members)
 
     cfg, c = mct.cfg, mct.n
     mesh = mct.mesh
@@ -147,11 +157,13 @@ def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
     spacing = spacing or cfg.posterior_sample_spacing
     r0, r1 = c0 * num, (c0 + c) * num       # this process's rows
     controls = rollout_controls(mct.data, test_len)
+    capture = mct.capture_mode(state, capture)
     x = state.params.x
     d = x.shape[-1]
     if mct.has_sghmc:
         samples, state = thin_posterior(mct, state, num, spacing,
-                                        thin_generator, thin_noise)
+                                        thin_generator, thin_noise,
+                                        thin_prop, capture)
         samples = [mct.whole_dims(p) for p in samples]
         rows = [member(samples[s], i) for i in range(c) for s in range(num)]
     else:
@@ -164,18 +176,20 @@ def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
         if noise is None:
             noise = hidden_normals(1, (c_all, num, test_len), d, generator,
                                    x.dtype, x.device)[0]
-        hidden_noise = [e[r0:r1] for e in hidden_normals(
-            n_hidden, (c_all * num, test_len), d, generator, x.dtype,
-            x.device)]
+        if hidden_noise is None and n_hidden:
+            hidden_noise = hidden_normals(n_hidden, (c_all * num, test_len),
+                                          d, generator, x.dtype, x.device)
+        hidden_noise = [e.reshape(c_all * num, test_len, d)[r0:r1]
+                        for e in hidden_noise or ()]
         noise = noise.reshape(c_all * num, test_len, d)[r0:r1]
-        per = num if len(rows) == c else 1        # rows sharing params
-        rolls = [recursion_rollout(
-            mct, p, controls, noise[r * per:(r + 1) * per],
-            [e[r * per:(r + 1) * per] for e in hidden_noise])
-            for r, p in enumerate(rows if launch else ())]
+        # Groups of rows sharing a set: S a chain (iid), or one (thinned).
+        groups = (len(rows), (c * num) // len(rows), test_len, d)
         if launch:
-            xs = torch.cat([r[0] for r in rolls])
-            vs = torch.cat([r[1] for r in rolls])
+            xs, vs = recursion_rollout(
+                mct, stack_members(rows), controls, noise.reshape(groups),
+                [e.reshape(groups) for e in hidden_noise], capture=capture)
+            xs = xs.reshape(c * num, test_len, d)
+            vs = vs.reshape(c * num, test_len, d)
     elif launch:
         inp = posterior_inputs(mct, rows)
         if len(rows) == c:                        # iid: S rows a chain

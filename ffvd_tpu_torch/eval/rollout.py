@@ -22,8 +22,14 @@ is (pallas_rollout.py:148).  A LinearK config and a deep one
 (``cfg.n_layers > 1``) take ``recursion_rollout``, a torch recursion of
 ``gp_transition`` (after ``model.deep.propagate_step`` through the hidden
 layers, for a deep model): the port of the JAX package's production
-rollout, a ``lax.scan`` of the same step.  ``cfg.kernel_type`` and
-``cfg.n_layers`` alone choose the path.
+rollout, a ``lax.scan`` of the same step, ``vmap``ped over the samples
+and the chains.  Here too every row goes through one recursion: G
+parameter sets of R rows each (iid samples G=1, R=S; a thinned chain's
+samples G=S, R=1; chains G=C, R=S; thinned chains G=C×S, R=1), each step
+run once for all of them under ``torch.func.vmap`` over G.  On the card
+that step is captured once in a CUDA graph and replayed T times
+(``_RolloutGraph``), the draws copied in once an evaluation.
+``cfg.kernel_type`` and ``cfg.n_layers`` alone choose the path.
 
 Under ``cfg.collapse_precision`` "ds64" or "hybrid", for every case and
 both paths, the head's Kmm factors come from ``ds_precal`` and a collapsed
@@ -42,6 +48,7 @@ Metrics (base_model.py:340-349, :629):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, List, Optional
 
@@ -57,9 +64,11 @@ from ffvd_tpu_torch.model.ds_collapse import (ds_collapsed_u_posterior,
                                               ds_precal)
 from ffvd_tpu_torch.model.elbo import gp_inputs
 from ffvd_tpu_torch.model.likelihoods import emission_mean, use_full_r
-from ffvd_tpu_torch.model.params import GPSSMParams, SSMData
+from ffvd_tpu_torch.model.params import (GPSSMParams, HiddenLayerParams,
+                                         SSMData)
 from ffvd_tpu_torch.ops import rollout as rollout_ops
 from ffvd_tpu_torch.ops.kernels import KernelParams
+from ffvd_tpu_torch.parallel.sharding import no_vmap_fallback, stack_members
 from ffvd_tpu_torch.utils import graphs
 
 
@@ -266,36 +275,157 @@ def rollout_controls(data: SSMData, test_len: int) -> torch.Tensor:
     return controls.contiguous()
 
 
-def recursion_rollout(trainer: Trainer, params: GPSSMParams,
-                      controls: torch.Tensor, noise: torch.Tensor,
-                      hidden_noise: Optional[List[torch.Tensor]] = None):
-    """Rollouts of one parameter set by the torch recursion of
-    ``gp_transition`` (the step of ``ffvd_tpu/eval/rollout.py::
-    _rollout_one``), S = noise.shape[0] rows from x_N sharing its Kmm
-    factor, U or q(U) and Q.  noise (S, T, D), the head's normals.  A deep
-    model first propagates each step's state through its hidden layers
-    (``propagate_step``, the layers' Kmm factorised once), with
-    ``hidden_noise``, one (S, T, D) tensor per hidden layer; the identity
-    skip stays on x_t.  Returns (xs, var_tot), each (S, T, D)."""
+def _rollout_set(trainer: Trainer, params: GPSSMParams
+                 ) -> Dict[str, torch.Tensor]:
+    """One parameter set's recursion inputs: the head's kernel, Z, Lm⁻¹,
+    U or the collapsed q(U) mean and factor, Q and x_N, and each hidden
+    layer's u, z, kernel and Lm⁻¹ (its Kmm factorised once)."""
     cfg = trainer.cfg
     pre = rollout_precal(cfg, params)
     u_val, q_sqrt = u_and_qsqrt(trainer, params, trainer.data, pre)
+    out = {"log_variance": params.kernel.log_variance,
+           "log_lengthscales": params.kernel.log_lengthscales,
+           "z": params.z, "lm_inv": pre.lm_inv, "u": u_val, "q": params.q,
+           "x0": params.x[-1]}
+    if q_sqrt is not None:
+        out["q_sqrt"] = q_sqrt
     hpre = hidden_precals(cfg.kernel_type, cfg.jitter, params.hidden)
-    q = params.q
-    x = params.x[-1][None, :].expand(noise.shape[0], -1)
-    xs, vs = [], []
-    for t in range(controls.shape[0]):
-        h = None
-        if params.hidden:
-            h = propagate_step(cfg.kernel_type, cfg.jitter, params.hidden,
-                               hpre, x, controls[t],
-                               [e[:, t] for e in hidden_noise])
-        x, v = gp_transition(cfg.kernel_type, params.kernel, pre, params.z,
-                             u_val, q, x, controls[t], noise[:, t], q_sqrt,
-                             h_t=h)
-        xs.append(x)
-        vs.append(v)
-    return torch.stack(xs, dim=1), torch.stack(vs, dim=1)
+    for i, (layer, hp) in enumerate(zip(params.hidden, hpre)):
+        out.update({f"hidden.{i}.u": layer.u, f"hidden.{i}.z": layer.z,
+                    f"hidden.{i}.log_variance": layer.kernel.log_variance,
+                    f"hidden.{i}.log_lengthscales":
+                        layer.kernel.log_lengthscales,
+                    f"hidden.{i}.lm_inv": hp.lm_inv})
+    return out
+
+
+def rollout_sets(trainer: Trainer, params: GPSSMParams
+                 ) -> Dict[str, torch.Tensor]:
+    """The recursion inputs of G parameter sets stacked on the leading axis
+    of every leaf of ``params``, all set up at once under
+    ``torch.func.vmap``."""
+    one = lambda leaves: _rollout_set(trainer,
+                                      GPSSMParams.from_leaves(leaves))
+    with no_vmap_fallback():
+        return torch.func.vmap(one)(params.leaves())
+
+
+def _transition(cfg, n_hidden: int, s: Dict[str, torch.Tensor],
+                x: torch.Tensor, ctrl: torch.Tensor, eps: torch.Tensor,
+                heps: List[torch.Tensor]):
+    """One step of one group's R rows (``_rollout_one``'s step): x (R, D)
+    through the hidden layers with normals ``heps``, then
+    ``gp_transition`` with the head's normals ``eps``; ``s`` is the group's
+    set (``_rollout_set``).  Returns (x_next, var_tot), each (R, D)."""
+    kt = cfg.kernel_type
+    h = None
+    if n_hidden:
+        layers = [HiddenLayerParams(
+            u=s[f"hidden.{i}.u"], z=s[f"hidden.{i}.z"],
+            kernel=KernelParams(s[f"hidden.{i}.log_variance"],
+                                s[f"hidden.{i}.log_lengthscales"]))
+            for i in range(n_hidden)]
+        hpre = [Precal(lm=None, lm_inv=s[f"hidden.{i}.lm_inv"])
+                for i in range(n_hidden)]
+        h = propagate_step(kt, cfg.jitter, layers, hpre, x, ctrl, heps)
+    return gp_transition(kt, KernelParams(s["log_variance"],
+                                          s["log_lengthscales"]),
+                         Precal(lm=None, lm_inv=s["lm_inv"]), s["z"],
+                         s["u"], s["q"], x, ctrl, eps, s.get("q_sqrt"),
+                         h_t=h)
+
+
+class _RolloutGraph:
+    """One step of the recursion for every row of G groups of R, as a
+    ``utils.graphs.StepGraph`` over static buffers: the G sets, the
+    controls (T, U) and the whole draws, the head's (G, R, T, D) and each
+    hidden layer's.  The step reads its index t from a device counter,
+    gathers ``controls[t]`` and the draws' column t, runs ``_transition``
+    under ``torch.func.vmap`` over G, writes ``xs[:, :, t]`` and
+    ``vs[:, :, t]`` in place and advances the counter: nothing comes from
+    the host.  ``run`` copies one evaluation's inputs in once and runs the
+    step T times; captured, the first two are eager warm-ups, the third
+    captures and every later one is a replay.  Bound to the inputs'
+    signature (``sig``); it owns every buffer it reads."""
+
+    def __init__(self, cfg, inputs: dict, capture: bool):
+        self.static = graphs.tree_map(torch.clone, inputs)
+        noise = self.static["noise"]
+        n_hidden = len(self.static["hidden"])
+        self.t = torch.zeros(1, dtype=torch.int64, device=noise.device)
+        self.x = noise.new_empty(noise.shape[:2] + noise.shape[3:])
+        self.xs = torch.empty_like(noise)
+        self.vs = torch.empty_like(noise)
+        step = torch.func.vmap(functools.partial(_transition, cfg, n_hidden),
+                               in_dims=(0, 0, None, 0, 0))
+
+        def body(_):
+            st, t = self.static, self.t
+            col = lambda e: e.index_select(2, t)[:, :, 0]
+            with no_vmap_fallback():
+                x, v = step(st["sets"], self.x,
+                            st["controls"].index_select(0, t)[0],
+                            col(st["noise"]), [col(e) for e in st["hidden"]])
+            self.xs.index_copy_(2, t, x.unsqueeze(2))
+            self.vs.index_copy_(2, t, v.unsqueeze(2))
+            self.x.copy_(x)
+            t.add_(1)
+
+        self.graph = graphs.StepGraph(body, {}, capture)
+        self.sig = (capture, graphs.signature(inputs))
+
+    def run(self, inputs: dict):
+        graphs.copy_into(self.static, inputs)
+        x0 = self.static["sets"]["x0"]
+        self.x.copy_(x0[:, None, :].expand(self.x.shape))
+        self.t.zero_()
+        for _ in range(self.xs.shape[2]):
+            self.graph({})
+        return self.xs.clone(), self.vs.clone()
+
+
+def recursion_rollout(trainer: Trainer, params: GPSSMParams,
+                      controls: torch.Tensor, noise: torch.Tensor,
+                      hidden_noise: Optional[List[torch.Tensor]] = None,
+                      capture: bool = False):
+    """Rollouts by the recursion of ``gp_transition`` (the step of
+    ``ffvd_tpu/eval/rollout.py::_rollout_one``), every row of G groups at
+    once: group g's R rows start from its x_N and share its Kmm factor, U
+    or q(U) and Q.  A deep model first propagates each step's state through
+    its hidden layers (``propagate_step``, the layers' Kmm factorised once
+    a set), with ``hidden_noise``; the identity skip stays on x_t.
+
+    ``noise`` (R, T, D), the head's normals, with ``hidden_noise`` one
+    (R, T, D) tensor per hidden layer: ``params`` is one set (G=1) and the
+    result (xs, var_tot) is (R, T, D) each.  ``noise`` (G, R, T, D), with
+    ``hidden_noise`` shaped alike: ``params`` holds G sets stacked on the
+    leading axis of every leaf, and the result is (G, R, T, D) each.  So
+    iid samples are G=1, R=S; thinned samples G=S, R=1; chains G=C, R=S;
+    thinned chains G=C×S, R=1.
+
+    The sets are set up once (``rollout_sets``), then every step runs once
+    for all G×R rows, under ``torch.func.vmap`` over G, reading its inputs
+    from the static buffers of ``_RolloutGraph``.  ``capture``: replay that
+    step from a CUDA graph (on the card; the caller decides, see
+    ``collect_posterior``), else run it plainly.  The trainer keeps the
+    graph (``trainer._rollout_graph``) for its next call with inputs of
+    the same shapes."""
+    if len(hidden_noise or ()) != len(params.hidden):
+        raise ValueError(f"{len(params.hidden)} hidden layers need as many "
+                         "hidden_noise tensors, one a layer")
+    grouped = noise.dim() == 4
+    lift = (lambda t: t) if grouped else (lambda t: t[None])
+    params = GPSSMParams.from_leaves({k: lift(v) for k, v in
+                                      params.leaves().items()})
+    inputs = {"sets": rollout_sets(trainer, params), "controls": controls,
+              "noise": lift(noise),
+              "hidden": [lift(e) for e in hidden_noise or ()]}
+    g = getattr(trainer, "_rollout_graph", None)
+    if g is None or g.sig != (capture, graphs.signature(inputs)):
+        g = trainer._rollout_graph = _RolloutGraph(trainer.cfg, inputs,
+                                                   capture)
+    xs, vs = g.run(inputs)
+    return (xs, vs) if grouped else (xs[0], vs[0])
 
 
 @torch.no_grad()
@@ -315,15 +445,19 @@ def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
     (``thin_posterior``, normals from ``thin_generator`` or ``thin_noise``
     and ``thin_prop``) and the S samples' own parameters go to one
     ``rollout_batched`` call.  A LinearK or deep config rolls out by
-    ``recursion_rollout`` instead: once for the iid samples, once a sample
-    for a thinned chain.  ``generator`` draws the rollout's Philox seed
-    (kernel) or normals (recursion); ``noise`` (num, test_len, D) and, for
-    a deep model, ``hidden_noise`` (one (num, test_len, D) tensor per
-    hidden layer), when given, replace that noise.  ``capture``: the
-    thinning's, as in ``thin_posterior``.  Returns (predict_x (S, T, D),
-    predict_x_var (S, T, D), the state with the moved chain)."""
+    ``recursion_rollout`` instead, once for all S rows: one group of S for
+    the iid samples, S groups of one for a thinned chain.  ``generator``
+    draws the rollout's Philox seed (kernel) or normals (recursion);
+    ``noise`` (num, test_len, D) and, for a deep model, ``hidden_noise``
+    (one (num, test_len, D) tensor per hidden layer), when given, replace
+    that noise.  ``capture``, as in ``Trainer.run``: by default on the card
+    the thinning replays its captured sub-step and the recursion its
+    captured step; never on the CPU or under a mesh, where True raises.
+    Returns (predict_x (S, T, D), predict_x_var (S, T, D), the state with
+    the moved chain)."""
     cfg = trainer.cfg
     num = num or cfg.num_posterior_samples
+    capture = trainer.capture_mode(state, capture)
     controls = rollout_controls(trainer.data, test_len)
     x = state.params.x
     recursion = (cfg.kernel_type != "SquaredExponential"
@@ -340,13 +474,10 @@ def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
             trainer, state, num, cfg.posterior_sample_spacing,
             thin_generator, thin_noise, thin_prop, capture)
         if recursion:
-            rolls = [recursion_rollout(
-                trainer, p, controls, noise[i:i + 1],
-                None if hidden_noise is None
-                else [e[i:i + 1] for e in hidden_noise])
-                for i, p in enumerate(samples)]
-            return (torch.cat([r[0] for r in rolls]),
-                    torch.cat([r[1] for r in rolls]), state)
+            xs, vs = recursion_rollout(
+                trainer, stack_members(samples), controls, noise[:, None],
+                [e[:, None] for e in hidden_noise or ()], capture=capture)
+            return xs[:, 0], vs[:, 0], state
         inp = posterior_inputs(trainer, samples)
         xs, vs = rollout_ops.rollout_batched(
             controls=controls, noise=noise, generator=generator, **inp)
@@ -354,7 +485,7 @@ def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
     params = state.params
     if recursion:
         return (*recursion_rollout(trainer, params, controls, noise,
-                                   hidden_noise), state)
+                                   hidden_noise, capture=capture), state)
     pre = rollout_precal(cfg, params)
     u_val, q_sqrt = u_and_qsqrt(trainer, params, trainer.data, pre)
     xs, vs = rollout_ops.rollout(

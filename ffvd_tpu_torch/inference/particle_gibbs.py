@@ -21,17 +21,25 @@ Two styles, as in the JAX package (``cfg.pg_ancestor_trace``):
 Every random number of a sweep is drawn up front, one call per array
 (``pg_draws``), or injected (``draws=``), so the tests can feed both
 packages JAX's draws.  Resampling is Gumbel-max, ``argmax(logits + G)``,
-which is how ``jax.random.categorical`` samples.  Inside the recursion and
-the backtrack nothing reads a value back to the host: indices stay on the
-device (``argmax``, ``index_select``, ``gather``, ``torch.where``), so the
-sweep can be captured in a CUDA graph.  Only ``kernel_precal`` before the
-recursion syncs (its Cholesky retry check).
+which is how ``jax.random.categorical`` samples.  Nothing in a sweep reads
+a value back to the host: indices stay on the device (``argmax``,
+``index_select``, ``gather``, ``torch.where``) and ``kernel_precal``'s
+Cholesky retry is branch-free (``ops/chol.py``), so the whole sweep can be
+captured in a CUDA graph.
+
+Several independent sweeps, the chains or datasets of
+``parallel.BatchedTrainer``, run as one (``batched_sweep``): the
+one-member sweep under ``torch.func.vmap`` over a leading member axis of
+the params, the draws and, on a dataset axis, the data, as the JAX
+package's ``jax.vmap(outer_step)`` does.  Each of the sweep's kernels then
+covers every member, and each member factorises its own Kmm in one batched
+Cholesky.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -50,9 +58,10 @@ Stats = Dict[str, torch.Tensor]
 def _occupancy(idx: torch.Tensor, pp: int, dtype):
     """(unique-count, ref-survived) of each step's categorical index draw,
     idx (n, K), over a pool of ``pp`` (the reference particle is pool slot
-    pp-1): one scatter for all steps.  Returns two (n,) tensors."""
+    pp-1): one scatter for all steps, out of place, so that it batches
+    under ``torch.func.vmap``.  Returns two (n,) tensors."""
     counts = torch.zeros((idx.shape[0], pp), dtype=dtype,
-                         device=idx.device).scatter_add_(
+                         device=idx.device).scatter_add(
         1, idx, torch.ones(idx.shape, dtype=dtype, device=idx.device))
     return torch.sum(counts > 0, dim=1), counts[:, pp - 1] > 0
 
@@ -261,3 +270,32 @@ def make_pg_fn(cfg: FFVDConfig, data: Optional[SSMData] = None,
         params = dataclasses.replace(params, x=new_x)
         return (params, stats) if with_stats else params
     return pg_fn
+
+
+def stack_draws(draws: Sequence[Draws]) -> Draws:
+    """Per-member sweep draws (``pg_draws``'s dicts) stacked on a leading
+    member axis."""
+    return {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
+
+
+@torch.no_grad()
+def batched_sweep(pg_fn: Callable, params: GPSSMParams, data: SSMData,
+                  draws: Draws, data_axis: bool = False) -> torch.Tensor:
+    """The sweeps of n members as one: ``pg_fn`` (``make_pg_fn``'s, the
+    sweep of one member from injected draws) under ``torch.func.vmap`` over
+    the leading member axis of every leaf of ``params``, of ``draws``
+    (``stack_draws``) and, with ``data_axis``, of ``data``'s y and control
+    (one dataset per member; otherwise all members share ``data``).
+    ``kernel_precal`` runs inside the map, so every member's Kmm is
+    factorised in one batched Cholesky.  Returns the n new trajectories
+    (n, N+1, D); member i's equals ``pg_fn(member i, data i, draws i)``'s.
+    An op without a batching rule falls back to functorch's per-member loop
+    unless the caller turns that off (``parallel.sharding.
+    no_vmap_fallback``, as ``BatchedTrainer`` does)."""
+    def one(leaves, dr, y, control):
+        return pg_fn(GPSSMParams.from_leaves(leaves), None,
+                     SSMData(y=y, control=control), draws=dr).x
+
+    dd = 0 if data_axis else None
+    return torch.func.vmap(one, in_dims=(0, 0, dd, dd))(
+        params.leaves(), draws, data.y, data.control)

@@ -601,9 +601,10 @@ class Trainer:
 
     def capture_mode(self, state: TrainState, capture: Optional[bool]
                      ) -> bool:
-        """Whether ``run`` and ``eval.rollout.thin_posterior`` replay a CUDA
-        graph: by default on the card, never on the CPU or under a mesh
-        (gloo collectives cannot be captured; they run eagerly there)."""
+        """Whether ``run``, ``eval.rollout.thin_posterior`` and the
+        rollout recursion replay a CUDA graph: by default on the card,
+        never on the CPU or under a mesh (gloo collectives cannot be
+        captured; they run eagerly there)."""
         on_card = state.params.x.device.type == "cuda"
         if capture is None:
             return on_card and self.mesh is None

@@ -17,13 +17,15 @@ iteration's launches:
 - every random number (sampler normals, window starts and feeds,
   inter-layer normals) is drawn outside ``vmap`` with a member axis, from
   the caller's ``torch.Generator``, or injected;
-- the particle-Gibbs sweep of case C6 draws inside its recursion and runs
-  one member at a time, outside ``vmap``; the rest of the step stays
-  batched.
+- the particle-Gibbs sweep of case C6 goes under ``torch.func.vmap`` too
+  (``particle_gibbs.batched_sweep``): every member's sweep draws are made
+  first, in member order, then the C sweeps run as one, each kernel of the
+  500-step recursion covering all C members.
 
 functorch runs an op that has no batching rule as a loop over the members
-and says so only in a warning.  The step turns that fallback off, so such
-an op raises instead of looping unnoticed (``no_vmap_fallback``).
+and says so only in a warning.  The objective and the sweep turn that
+fallback off, so such an op raises instead of looping unnoticed
+(``no_vmap_fallback``).
 
 The stacked ``TrainState``: params, SG-HMC state and the Adam leaves have
 shape (C, ...), the window (C, window_size, ...); ``step`` and
@@ -75,6 +77,8 @@ import torch._C._functorch as _functorch
 import torch.distributed as dist
 
 from ffvd_tpu_torch.config import FFVDConfig
+from ffvd_tpu_torch.inference.particle_gibbs import (batched_sweep, pg_draws,
+                                                     stack_draws)
 from ffvd_tpu_torch.inference.sghmc import SGHMCState
 from ffvd_tpu_torch.inference.trainer import Leaves, Trainer, TrainState
 from ffvd_tpu_torch.model.params import GPSSMParams, SSMData, hidden_paths
@@ -207,12 +211,20 @@ class BatchedTrainer(Trainer):
         return w[torch.arange(self.n, device=w.device), i]
 
     def _pg(self, params: GPSSMParams, generator, pg) -> GPSSMParams:
-        """C6: one particle-Gibbs sweep per member, one after another
-        (``pg`` one sweep's draws per member)."""
-        xs = [self.pg_fn(member(params, i), generator, self.member_data(i),
-                         draws=None if pg is None else pg[i]).x
-              for i in range(self.n)]
-        return dataclasses.replace(params, x=torch.stack(xs))
+        """C6: every member's particle-Gibbs sweep as one batched sweep
+        (``particle_gibbs.batched_sweep``).  ``pg``, one sweep's draws per
+        member, replaces the draws from ``generator``, which are made
+        member by member in member order, so the stream is that of n
+        single-member sweeps one after another."""
+        if self.cfg.pg_compat_noop:
+            return params
+        if pg is None:
+            p0 = member(params, 0)
+            pg = [pg_draws(self.cfg, p0, generator) for _ in range(self.n)]
+        with no_vmap_fallback():
+            x = batched_sweep(self.pg_fn, params, self.data, stack_draws(pg),
+                              self.data_axis)
+        return dataclasses.replace(params, x=x)
 
     def _raise_non_finite(self, nlls: torch.Tensor, done: int,
                           state: TrainState):
@@ -527,12 +539,11 @@ class MeshBatchedTrainer(BatchedTrainer):
 
     def _pg(self, params: GPSSMParams, generator, pg) -> GPSSMParams:
         """C6 on a mesh: every member's sweep draws are made in order, this
-        process's members sweep with all D dims (the same sweep on every
-        process of an 'ep' group)."""
+        process's members sweep as one batch with all D dims (the same
+        sweep on every process of an 'ep' group)."""
         if self.mesh is None:
             return super()._pg(params, generator, pg)
         if pg is None and not self.cfg.pg_compat_noop:
-            from ffvd_tpu_torch.inference.particle_gibbs import pg_draws
             p0 = member(params, 0)
             pg = [pg_draws(self.cfg, p0, generator)
                   for _ in range(self.n_whole)]

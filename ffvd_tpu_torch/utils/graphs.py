@@ -1,15 +1,17 @@
-"""CUDA graphs of the training iteration and the thinning sub-step.
+"""CUDA graphs of the training iteration, the thinning sub-step and the
+rollout recursion's step.
 
 The JAX package runs its loops as compiled device programs: ``Trainer``'s
 ``jax.jit(lax.scan(outer_step))`` over 500 iterations with one host read
 a chunk (``ffvd_tpu/inference/trainer.py:261,443-471``), and the thinning
-scan of ``build_collect`` (``ffvd_tpu/eval/rollout.py:191-221``).  The
-card's counterpart is a CUDA graph: one iteration's few hundred kernel
-launches are captured once and replayed as one launch.
+and rollout scans of ``build_collect`` (``ffvd_tpu/eval/rollout.py:
+44-83,191-237``).  The card's counterpart is a CUDA graph: one iteration's
+few hundred kernel launches are captured once and replayed as one launch.
 
 A graph replays fixed addresses, with every Python value of the capture
 baked in.  So the step it replays (``Trainer.outer_step``, the sampler
-sub-step of ``eval.rollout.thin_posterior``):
+sub-step of ``eval.rollout.thin_posterior``, the step of
+``eval.rollout.recursion_rollout``):
 
 - reads its random numbers from a registered ``torch.Generator`` on the
   card (its Philox offset advances on every replay, as in eager runs), or
@@ -59,6 +61,13 @@ def _leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def copy_into(static, tree) -> None:
+    """Copy the tensors of ``tree`` into those of ``static``, a tree of the
+    same signature."""
+    for dst, src in zip(_leaves(static), _leaves(tree)):
+        dst.copy_(src)
 
 
 def signature(tree) -> tuple:
@@ -132,8 +141,7 @@ class StepGraph:
         return self.graph is not None
 
     def __call__(self, inputs) -> None:
-        for dst, src in zip(_leaves(self.static), _leaves(inputs)):
-            dst.copy_(src)
+        copy_into(self.static, inputs)
         if not self.capture:
             self.body(self.static)
             return

@@ -238,6 +238,8 @@ def test_deep_chains_train_finitely_from_the_generator():
 
 
 def test_c6_chains_sweep_one_at_a_time():
+    """Each chain gets its own sweep; the C sweeps now run as one batch
+    (``particle_gibbs.batched_sweep``)."""
     kw = dict(dataset="flutter", num_inducing=M, x_dim=D, case=6,
               pg_particles=8)
     leaves, y, control = deep_model(2, n=24, n_hidden=0)
