@@ -121,6 +121,11 @@ that each print one JSON line:
    chains captured with per-member sweeps against the batched sweep,
    beside phase 9's one chain, with kernels a replay, busy share, capture
    seconds and graph pool MiB;
+11. the study runner (``scripts/study_torch.py``) at ``--quick`` in this
+   process, into a temporary file: ballbeam C4, C5 and C6 and the drive
+   12k arm's native and ds64 runs, each record finite with the fields the
+   study's pins read, the header naming the card, one rollout launch an
+   ``evaluate()``; a second call skips every tag;
 6. kernel timing with CUDA events at S=10 and S=64, shared and per-sample
    inputs, with the launch plan; fp32 at 80 per-sample rows and at M=512
    (global plan); and one ``{"kernels": [...]}`` line.
@@ -2744,6 +2749,72 @@ def phase_examples_quick(torch, ro, card, device="cuda"):
     return launches
 
 
+STUDY_ARMS = "c4_six,c5_ballbeam,c6_ballbeam,drive12k"
+# Ballbeam C4, C5 and C6, and the drive 12k arm's native and ds64 runs,
+# with their iterations at --quick.
+STUDY_TAGS = {"ballbeam": 50, "ballbeam_C5_s0": 3,
+              "ballbeam_C6_ancestor_s0": 2, "drive_long12k_s1": 50,
+              "drive_long12k_s1_ds64": 50}
+STUDY_NUMBERS = ("rmse", "nll", "nll_first", "nll_last", "budget_s2C2",
+                 "max_Q", "train_s", "it_per_s", "eval_ms")
+STUDY_FIELDS = STUDY_NUMBERS + (
+    "dataset", "case", "seed", "init_jitter", "collapse_precision", "dtype",
+    "iterations", "n_layers", "mode", "Q")
+
+
+def phase_study_quick(torch, ro, card, device="cuda"):
+    """Phase 11: ``scripts/study_torch.py --quick`` in this process, into a
+    temporary file, for ballbeam C4, C5 and C6 and the drive 12k arm's
+    native and ds64 runs; then the same call again, which must skip every
+    tag.  Every record finite with the fields the pins of
+    ``tests/test_torch_study_artifacts.py`` read, the header naming the
+    card, one rollout launch per ``evaluate()`` (all five are C4, C5 or
+    C6).  ``device="cpu"`` rehearses it on the host (no launches)."""
+    import tempfile
+    study = _load_script(ROOT / "scripts" / "study_torch.py")
+    on_card = device == "cuda"
+    match = "^(" + "|".join(STUDY_TAGS) + ")$"
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--quick", "--arms", STUDY_ARMS, "--match", match,
+                "--device", device, "--out", str(Path(tmp) / "study.json")]
+        ro.rollout.launches = 0          # this path starts here
+        first = study.main(argv)
+        launches = ro.rollout.launches
+        again = study.main(argv)
+        doc = json.loads((Path(tmp) / "study.json").read_text())
+    runs = doc["runs"]
+    emit("11_study_quick", card=card, arm_seconds=first["arm_seconds"],
+         launches=launches, seconds=time.time() - t0,
+         header=doc["header"], runs={t: {k: r[k] for k in (
+             "iterations", "rmse", "nll", "it_per_s", "eval_ms")}
+             for t, r in runs.items()})
+    check(sorted(first["ran"]) == sorted(STUDY_TAGS)
+          and not again["ran"]
+          and sorted(again["skipped"]) == sorted(STUDY_TAGS),
+          f"11: ran {first['ran']}, then ran {again['ran']} and skipped "
+          f"{again['skipped']}")
+    bad = [t for t, r in runs.items()
+           if any(k not in r for k in STUDY_FIELDS)
+           or not all(math.isfinite(r[k]) for k in STUDY_NUMBERS)
+           or not all(math.isfinite(q) for q in r["Q"])
+           or r["iterations"] != STUDY_TAGS[t]]
+    check(not bad, f"11: records not finite or fields missing: {bad}")
+    c5, c6 = runs["ballbeam_C5_s0"], runs["ballbeam_C6_ancestor_s0"]
+    check(isinstance(c5.get("clip_saturated"), bool)
+          and all(math.isfinite(c6["mixing_mean"][k]) for k in
+                  ("ref_survival", "unique_frac", "accepted")),
+          f"11: C5 clip {c5.get('clip_saturated')}, C6 mixing "
+          f"{c6.get('mixing_mean')}")
+    check(doc["header"]["quick"] and doc["header"]["device"] == device
+          and doc["header"]["card"] == (card if on_card else "cpu"),
+          f"11: header {doc['header']} against the card {card}")
+    check(launches == (len(STUDY_TAGS) if on_card else 0),
+          f"11: {launches} rollout launches for {len(STUDY_TAGS)} "
+          f"evaluate() calls")
+    return launches
+
+
 def phase_timing(torch, ro):
     """Phase 6: kernel and plain-version times at the main shapes, the
     kernel's time at S=64 beside them (64 clusters queue past 132 SMs), and
@@ -2897,6 +2968,8 @@ def main() -> int:
     bench_launches = timed("bench_quick", phase_bench_quick, torch, ro, card)
     example_launches = timed("examples_quick", phase_examples_quick, torch,
                              ro, card)
+    study_launches = timed("study_quick", phase_study_quick, torch, ro,
+                           card)
     timing = timed("timing", phase_timing, torch, ro)
     emit("phase_seconds", **seconds, total=time.time() - t0)
 
@@ -2920,6 +2993,7 @@ def main() -> int:
             "multichain_C5x4": multichain["C5x4"],
             "six_datasets_m512": six, **mesh["launches"],
             "bench_torch_quick": bench_launches,
+            "study_quick_11": study_launches,
             **{f"example_{k}": v for k, v in example_launches.items()}},
         "fp32_s80_per_sample": {k: timing["fp32_s80_per_sample"][k] for k in
                                 ("ms", "plain_ms", "bound_ms", "bound_by")},

@@ -236,12 +236,11 @@ def fit_ensemble(cfg, n_chains: int, device=None, dtype=None,
     particle Gibbs, windows, deep): a full-batch Adam case (C1/C4) is
     deterministic given its warm start, so its chains are bit-identical.
     ``init_jitter`` adds N(0, jitter²) to every leaf of chains 1…C−1's warm
-    start, drawn from a CPU ``torch.Generator`` seeded with ``seed ^
-    0x5EED``, so that deterministic chains reach different optima; chain 0
-    keeps the exact warm start.  ``seeds`` keeps the signature of the JAX
-    package's ``fit_ensemble``, which the port mirrors."""
+    start (``jitter_params``), so that deterministic chains reach different
+    optima; chain 0 keeps the exact warm start.  ``seeds`` keeps the
+    signature of the JAX package's ``fit_ensemble``, which the port
+    mirrors."""
     from ffvd_tpu_torch.api import FFVDModel
-    from ffvd_tpu_torch.model.params import GPSSMParams
 
     seeds = list(seeds) if seeds is not None else [
         cfg.seed + i for i in range(n_chains)]
@@ -250,12 +249,21 @@ def fit_ensemble(cfg, n_chains: int, device=None, dtype=None,
         m = FFVDModel(dataclasses.replace(cfg, seed=s), device=device,
                       dtype=dtype)
         if init_jitter and i > 0:
-            g = torch.Generator().manual_seed(s ^ 0x5EED)
-            with torch.no_grad():
-                leaves = {k: v + init_jitter * torch.randn(
-                    v.shape, generator=g, dtype=v.dtype).to(v.device)
-                    for k, v in m.params.leaves().items()}
-            m.state = m.trainer.init_state(GPSSMParams.from_leaves(leaves))
+            m.state = m.trainer.init_state(
+                jitter_params(m.params, init_jitter, s))
         m.fit(**fit_kwargs)
         models.append(m)
     return models
+
+
+@torch.no_grad()
+def jitter_params(params, init_jitter: float, seed: int):
+    """``params`` with N(0, init_jitter²) added to every leaf, drawn from a
+    CPU ``torch.Generator`` seeded with ``seed ^ 0x5EED`` (the perturbed
+    start of ``fit_ensemble``'s chains 1…C−1)."""
+    from ffvd_tpu_torch.model.params import GPSSMParams
+    g = torch.Generator().manual_seed(seed ^ 0x5EED)
+    return GPSSMParams.from_leaves({
+        k: v + init_jitter * torch.randn(
+            v.shape, generator=g, dtype=v.dtype).to(v.device)
+        for k, v in params.leaves().items()})

@@ -7,6 +7,7 @@ FLOP count of a C4 iteration is the formula of its docstring."""
 import importlib.util
 import json
 import math
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -33,9 +34,12 @@ def _bench():
 
 
 def test_quick_cpu_run_prints_bench_py_line(tmp_path):
+    # Two threads, as the other tests use: a script that takes every core
+    # slows many times over when the suite's workers share them.
     out = subprocess.run([sys.executable, str(SCRIPT), "--platform", "cpu",
                           "--quick"], cwd=tmp_path, capture_output=True,
-                         text=True, timeout=300)
+                         text=True, timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "2"})
     assert out.returncode == 0, out.stderr[-4000:]
     lines = out.stdout.strip().splitlines()
     assert len(lines) == 1

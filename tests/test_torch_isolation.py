@@ -98,7 +98,8 @@ print("ok")
     assert out.stdout.strip() == "ok"
 
 
-SCRIPTS = ["scripts/bench_torch.py"] + sorted(
+SCRIPTS = ["scripts/bench_torch.py", "scripts/study_torch.py",
+           "scripts/study_checks_torch.py"] + sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "examples_torch").glob("*.py"))
 JAX_NAMES = ("jax", "jaxlib", "optax", "ffvd_tpu")
 

@@ -1,0 +1,228 @@
+"""The study runner (``scripts/study_torch.py``) on the CPU at ``--quick``.
+
+C4 training draws no random numbers, so the runner's ballbeam C4 record
+(50 iterations, fp64, from the vendored warm start) is held against the JAX
+package's ``Trainer`` after the same 50 iterations at rtol 1e-10: the
+record's last training nll and its learned Q.  The other tests run one
+record of each other arm kind and check what the pins of
+``tests/test_torch_study_artifacts.py`` read, that a second call appends
+only new tags, and that the runner refuses to mix a quick file with a full
+one or to run without a card unless asked for the CPU.
+"""
+
+import importlib.util
+import json
+import math
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ffvd_tpu.config import FFVDConfig as JConfig
+from ffvd_tpu.data import create_dataset as j_create_dataset
+from ffvd_tpu.data import load_warmstart as j_load_warmstart
+from ffvd_tpu.inference.trainer import Trainer as JTrainer
+from ffvd_tpu.model.params import SSMData as JSSMData
+from ffvd_tpu.model.params import init_params_from_warmstart as j_init
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+ANCHOR_NLL = -2.410755   # ballbeam C4 warm start (TF golden fixture)
+# One record of each arm kind; drive12k gives its three precision arms.
+TAGS = ("ballbeam", "ballbeam_C2", "flutter_C5_s0_ds64",
+        "ballbeam_C6_ancestor_s0", "drive_C4_deep2", "drive_long12k_s1",
+        "drive_long12k_s1_ds64", "drive_long12k_s1_fp64cpu")
+ARMS = "c4_six,c2,c5_flutter,c6_ballbeam,deep2,drive12k"
+NUMBERS = ("rmse", "nll", "nll_first", "nll_last", "budget_s2C2", "max_Q",
+           "train_s", "it_per_s", "eval_ms")
+FIELDS = NUMBERS + ("arm", "dataset", "case", "seed", "init_jitter",
+                    "collapse_precision", "dtype", "iterations", "n_layers",
+                    "mode", "device", "card", "Q")
+
+
+def _script():
+    spec = importlib.util.spec_from_file_location(
+        "study_torch", ROOT / "scripts" / "study_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _argv(out, match, arms=ARMS):
+    return ["--device", "cpu", "--quick", "--dtype", "fp64", "--arms", arms,
+            "--match", match, "--out", str(out)]
+
+
+@pytest.fixture(scope="module")
+def study(tmp_path_factory):
+    out = tmp_path_factory.mktemp("study") / "study.json"
+    mod = _script()
+    summary = mod.main(_argv(out, "^(" + "|".join(TAGS) + ")$"))
+    return mod, out, summary, json.loads(out.read_text())
+
+
+def test_c4_record_matches_jax_trainer(study):
+    """The ballbeam C4 record after 50 fp64 iterations: last training nll
+    and learned Q equal the JAX ``Trainer``'s at rtol 1e-10."""
+    rec = study[3]["runs"]["ballbeam"]
+    assert rec["iterations"] == 50 and rec["dtype"] == "fp64"
+    np.testing.assert_allclose(rec["nll_first"], ANCHOR_NLL, rtol=1e-6)
+    cfg = JConfig(dataset="ballbeam", case=4)
+    ds = j_create_dataset("ballbeam")
+    tr = JTrainer(cfg, JSSMData(y=jnp.asarray(ds.y_train),
+                                control=jnp.asarray(ds.control)))
+    state, nlls = tr.run(tr.init_state(j_init(j_load_warmstart("ballbeam"))),
+                         50, jax.random.key(0), chunk_size=50)
+    np.testing.assert_allclose(rec["nll_last"], float(nlls[-1]), rtol=1e-10)
+    np.testing.assert_allclose(rec["Q"],
+                               np.exp(np.asarray(state.params.log_q)),
+                               rtol=1e-10)
+    np.testing.assert_allclose(rec["max_Q"], max(rec["Q"]), rtol=0)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_record_schema(study, tag):
+    """Every record has the fields the pins read, finite, at --quick's
+    iterations; sampled-hyper cases record clip saturation, C6 its mixing
+    diagnostics."""
+    mod, _, summary, doc = study
+    assert sorted(summary["ran"]) == sorted(TAGS)
+    rec = doc["runs"][tag]
+    assert not [k for k in FIELDS if k not in rec]
+    assert all(math.isfinite(rec[k]) for k in NUMBERS)
+    assert len(rec["Q"]) == 4 and max(rec["Q"]) == rec["max_Q"]
+    assert rec["mode"] == "trainer" and rec["device"] == "cpu"
+    kind = {"C2": "sampler", "C5": "sampler", "C6": "c6"}.get(rec["case"],
+                                                              "c4")
+    if "long12k" in tag:
+        kind = "12k"
+        assert rec["dtype"] == "fp64" and rec["init_jitter"] == 0.0
+        assert rec["collapse_precision"] == (
+            "ds64" if tag.endswith("_ds64") else "native")
+    assert rec["iterations"] == mod.QUICK[kind]
+    assert ("clip_saturated" in rec) == (kind == "sampler")
+    if kind == "sampler":
+        assert isinstance(rec["clip_saturated"], bool)
+    if kind == "c6":
+        m = rec["mixing_mean"]
+        assert len(rec["mixing_seq"]) == 1
+        assert 0.0 <= m["ref_survival"] <= 1.0
+        assert 0.0 < m["unique_frac"] <= 1.0
+        assert m["accepted"] in (0.0, 1.0)
+    if tag == "drive_C4_deep2":
+        assert rec["n_layers"] == 2
+
+
+def test_header_names_the_device(study):
+    doc = study[3]
+    h = doc["header"]
+    assert h["card"] == "cpu" and h["device"] == "cpu" and h["quick"]
+    assert h["torch"] == torch.__version__ and h["date"]
+    assert [c["ran"] for c in doc["calls"]] == [study[2]["ran"]]
+
+
+def test_resume_appends_only_new_tags(study, tmp_path):
+    """A second call skips every tag present; a call that adds a tag
+    leaves the earlier records as they were."""
+    mod, out, _, doc = study
+    path = tmp_path / "study.json"
+    path.write_text(out.read_text())
+    again = mod.main(_argv(path, "^(" + "|".join(TAGS) + ")$"))
+    assert again["ran"] == [] and sorted(again["skipped"]) == sorted(TAGS)
+    assert json.loads(path.read_text()) == doc
+    more = mod.main(_argv(path, "^(ballbeam|dryer)$", arms="c4_six"))
+    assert more["ran"] == ["dryer"] and more["skipped"] == ["ballbeam"]
+    new = json.loads(path.read_text())
+    assert {k: v for k, v in new["runs"].items() if k != "dryer"} \
+        == doc["runs"]
+    assert new["calls"][-1]["ran"] == ["dryer"]
+    assert len(new["calls"]) == len(doc["calls"]) + 1
+
+
+def test_quick_and_full_files_never_mix(study, tmp_path):
+    mod, out, _, _ = study
+    path = tmp_path / "study.json"
+    path.write_text(out.read_text())
+    argv = _argv(path, "^dryer$", arms="c4_six")
+    argv.remove("--quick")
+    with pytest.raises(ValueError, match="quick"):
+        mod.main(argv)
+
+
+def test_arms_cover_the_jax_tags():
+    """The full study's runs: the counts and tags of the JAX artifacts it
+    mirrors, the 12k starts 2-5 jittered."""
+    mod = _script()
+    runs = {a: [r["tag"] for r in mod.arm_runs(a)] for a in mod.ARMS}
+    assert {a: len(t) for a, t in runs.items()} == {
+        "c4_six": 6, "c2": 9, "c3": 6, "c5_ballbeam": 5, "c5_flutter": 10,
+        "c6_ballbeam": 5, "deep2": 6, "drive12k": 15}
+    assert runs["c2"][:2] == ["ballbeam_C2", "ballbeam_C2_seed1"]
+    assert "flutter_C5_s4_ds64" in runs["c5_flutter"]
+    assert "drive_C4_deep2_seed2" in runs["deep2"]
+    jit = {r["tag"]: r["init_jitter"] for r in mod.arm_runs("drive12k")}
+    assert jit["drive_long12k_s1_fp64cpu"] == 0.0
+    assert jit["drive_long12k_s5_ds64"] == 1e-6
+    with pytest.raises(ValueError, match="unknown arm"):
+        mod.arm_runs("c7")
+
+
+def test_jittered_start_is_the_ensembles():
+    """``jitter_params`` is the perturbed start of ``fit_ensemble``'s
+    chains: N(0, jitter²) a leaf from the generator seeded seed ^ 0x5EED."""
+    from ffvd_tpu_torch.api import FFVDModel
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.eval.ensemble import fit_ensemble, jitter_params
+    cfg = FFVDConfig(dataset="ballbeam", case=4, seed=3)
+    base = FFVDModel(cfg, device="cpu").params
+    j = jitter_params(base, 1e-6, 4)
+    models = fit_ensemble(cfg, 2, device="cpu", init_jitter=1e-6,
+                          num_iterations=1)
+    g = torch.Generator().manual_seed(4 ^ 0x5EED)
+    for k, v in base.leaves().items():
+        want = v + 1e-6 * torch.randn(v.shape, generator=g, dtype=v.dtype)
+        assert torch.equal(j.leaves()[k], want)
+    # chain 1 started from the same jittered point: one step of C4 from it
+    again = FFVDModel(FFVDConfig(dataset="ballbeam", case=4, seed=4),
+                      device="cpu")
+    again.state = again.trainer.init_state(j)
+    again.fit(1)
+    for k, v in models[1].params.leaves().items():
+        assert torch.equal(v, again.params.leaves()[k])
+
+
+def test_raises_without_cuda_unless_asked_for_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    out = tmp_path / "study.json"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _script().main(["--quick", "--arms", "c4_six", "--out", str(out)])
+    assert not out.exists()
+
+
+def test_card_host_checks_run_on_the_cpu():
+    """``scripts/study_checks_torch.py`` at a few iterations with every
+    "card" run on the CPU: the pairs it reports then agree, the eager and
+    the captured setups bit for bit."""
+    import sys
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import study_checks_torch
+    out = study_checks_torch.main(device="cpu", iterations=3, draws=1,
+                                  starts=())
+    act, fl = out["actuator_c4"], out["flutter_c5_ds64"]
+    assert out["card"] == "cpu"
+    assert sorted(act["points"]) == sorted(
+        ["card_fp32", "card_fp32_eager", "card_fp64", "cpu_fp32",
+         "cpu_fp64"])
+    assert all(math.isfinite(r) for p in act["points"].values()
+               for r in p["rmse_plain_fp64"])
+    assert act["pairs"]["card_fp32_eager|card_fp32"]["bit_equal"]
+    assert all(p["max_rel_all"] < 1e-6 for p in act["pairs"].values())
+    assert act["max_rel_kernel_vs_plain"] < 1e-3
+    assert out["fp32_gradient"]["median_card_over_host"] == 1.0
+    assert fl["pairs"]["card_eager|card"]["bit_equal"]
+    assert fl["pairs"]["card|cpu"]["max_rel_all"] < 1e-6

@@ -53,7 +53,7 @@ def by_path(tree):
 
 def _jax_run(kw, n):
     """n jitted JAX outer steps, with the draws each one makes."""
-    cfg = JConfig(dataset="ballbeam", **kw)
+    cfg = JConfig(**{"dataset": "ballbeam", **kw})
     ds = j_create_dataset(cfg.dataset)
     tr = JTrainer(cfg, JSSMData(y=jnp.asarray(ds.y_train),
                                 control=jnp.asarray(ds.control)))
@@ -79,7 +79,7 @@ def _jax_run(kw, n):
 
 
 def _port(kw):
-    cfg = FFVDConfig(dataset="ballbeam", **kw)
+    cfg = FFVDConfig(**{"dataset": "ballbeam", **kw})
     ds = create_dataset(cfg.dataset)
     tr = Trainer(cfg, SSMData(y=torch.as_tensor(ds.y_train),
                               control=torch.as_tensor(ds.control)))
