@@ -125,7 +125,10 @@ that each print one JSON line:
    process, into a temporary file: ballbeam C4, C5 and C6 and the drive
    12k arm's native and ds64 runs, each record finite with the fields the
    study's pins read, the header naming the card, one rollout launch an
-   ``evaluate()``; a second call skips every tag;
+   ``evaluate()``; a second call skips every tag; 11b, the other arm
+   families at ``--quick``: C6 live, C6 P=500 and drive C6 as chains
+   groups, a C4 ensemble, the kink cold start under hybrid and ballbeam
+   C6 in fp64 on the card, one launch an ``evaluate()``;
 6. kernel timing with CUDA events at S=10 and S=64, shared and per-sample
    inputs, with the launch plan; fp32 at 80 per-sample rows and at M=512
    (global plan); and one ``{"kernels": [...]}`` line.
@@ -2815,6 +2818,75 @@ def phase_study_quick(torch, ro, card, device="cuda"):
     return launches
 
 
+# The other study arm families at --quick: C6 live, C6 P=500 and C6 on
+# drive as two-member chains groups, a 4-chain C4 ensemble, the kink cold
+# start under hybrid, and ballbeam C6 in fp64 on the card; each tag's
+# iterations and evaluate() launches (an ensemble rolls out once a chain,
+# the cold start twice).
+STUDY_NEW_ARMS = "c6_live,c6_p500,c6_drive,ensemble,coldstart,c6_ballbeam_fp64"
+STUDY_NEW_TAGS = {"ballbeam_C6_live_s0": (2, 1), "ballbeam_C6_live_s1": (2, 1),
+                  "ballbeam_C6_liveP500_s0": (2, 1),
+                  "ballbeam_C6_liveP500_s1": (2, 1),
+                  "drive_C6_ancestor_s0": (2, 1),
+                  "drive_C6_ancestor_s1": (2, 1),
+                  "ensemble/ballbeam": (50, 4),
+                  "kink_cold_hybrid_s0": (20, 2),
+                  "ballbeam_C6_ancestor_s0_fp64card": (2, 1)}
+
+
+def phase_study_arms_quick(torch, ro, card, device="cuda"):
+    """Phase 11b: the other arm families through ``scripts/study_torch.py
+    --quick`` in this process, into a temporary file (``STUDY_NEW_TAGS``):
+    the chains groups' members trained in one ``MultiChainTrainer`` and
+    evaluated one by one, the ensemble pooled, the cold start's ds64-bound
+    nll, the fp64 record in fp64; every number finite, the rollout
+    launches one an ``evaluate()`` (a drive member above 1.5 adds its 10
+    redraws).  ``device="cpu"`` rehearses it on the host (no
+    launches)."""
+    import tempfile
+    study = _load_script(ROOT / "scripts" / "study_torch.py")
+    on_card = device == "cuda"
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ro.rollout.launches = 0          # this path starts here
+        out = study.main([
+            "--quick", "--arms", STUDY_NEW_ARMS, "--device", device,
+            "--match", "^(" + "|".join(STUDY_NEW_TAGS) + ")$",
+            "--out", str(Path(tmp) / "study.json")])
+        launches = ro.rollout.launches
+        runs = json.loads((Path(tmp) / "study.json").read_text())["runs"]
+    redraws = [t for t in runs if t.endswith("_redraw")]
+    emit("11b_study_arms_quick", card=card, arm_seconds=out["arm_seconds"],
+         launches=launches, seconds=time.time() - t0,
+         runs={t: {k: r[k] for k in ("iterations", "rmse", "nll",
+                                     "nll_final_ds64_bound", "mode",
+                                     "chains", "dtype") if k in r}
+               for t, r in runs.items()})
+    check(sorted(t for t in runs if t not in redraws)
+          == sorted(STUDY_NEW_TAGS),
+          f"11b: ran {sorted(runs)}, expected {sorted(STUDY_NEW_TAGS)}")
+    bad = [t for t, (n, _) in STUDY_NEW_TAGS.items()
+           if runs[t]["iterations"] != n
+           or not all(math.isfinite(v) for k, v in runs[t].items()
+                      if isinstance(v, float))]
+    check(not bad, f"11b: records not finite or cut wrong: {bad}")
+    groups = {t: runs[t] for t in STUDY_NEW_TAGS if "_C6_" in t
+              and "fp64card" not in t}
+    check(all(r["mode"] == "chains" and r["chains"] == 2
+              for r in groups.values())
+          and runs["ensemble/ballbeam"]["chains"] == 4
+          and len(runs["ensemble/ballbeam"]["per_chain"]) == 4
+          and runs["ballbeam_C6_ancestor_s0_fp64card"]["dtype"] == "fp64"
+          and math.isfinite(runs["kink_cold_hybrid_s0"]
+                            ["nll_final_ds64_bound"]),
+          "11b: chains "
+          f"{[(r['mode'], r.get('chains')) for r in groups.values()]}")
+    want = sum(k for _, k in STUDY_NEW_TAGS.values()) + 10 * len(redraws)
+    check(launches == (want if on_card else 0),
+          f"11b: {launches} rollout launches for {want} evaluate() calls")
+    return launches
+
+
 def phase_timing(torch, ro):
     """Phase 6: kernel and plain-version times at the main shapes, the
     kernel's time at S=64 beside them (64 clusters queue past 132 SMs), and
@@ -2970,6 +3042,7 @@ def main() -> int:
                              ro, card)
     study_launches = timed("study_quick", phase_study_quick, torch, ro,
                            card)
+    timed("study_arms_quick", phase_study_arms_quick, torch, ro, card)
     timing = timed("timing", phase_timing, torch, ro)
     emit("phase_seconds", **seconds, total=time.time() - t0)
 

@@ -43,7 +43,24 @@ feeds (drawn on the host, seed 55), captured and eager on the card and
 eager on the host: the trace pairs as above, and the largest relative
 difference of a leaf, card against host.
 
-Prints one JSON line, with the card and its power limit.
+**S2 and S4, ballbeam C2 and C6 (``--sampler``).**  Every random number
+of ``SHARED_ITERATIONS`` iterations drawn once on the host in fp64 (the
+sweep's ``pg=`` draws, SG-HMC's ``noise=`` and the window feed, from a
+generator seeded per iteration) and cast per setup: ``card_fp32``
+(captured), ``cpu_fp32``, ``card_fp64`` and ``cpu_fp64`` train from the
+warm start on them (the host runs in worker processes while the card
+works); the trace pairs as above.  Then ``SAMPLER_STARTS`` starts
+jittered by 1e-6 (the S1 check's starts 2-5) run 4000 iterations as the
+members of one ``MultiChainTrainer``, once in fp32 and once in fp64 on
+the card.  Every endpoint is evaluated ``DRAWS`` times in fp64 on the
+card with shared rollout normals (seed 0) and, for C2, the same thinning
+normals (a fresh SG-HMC chain from a generator seeded 0); the members
+also by their own ``evaluate()``.
+
+Prints one JSON line, with the card and its power limit:
+``python scripts/study_checks_torch.py`` the S1/S3 checks,
+``--sampler [--out FILE]`` the S2/S4 ones (FILE rewritten after every
+stage).
 """
 
 from __future__ import annotations
@@ -72,6 +89,11 @@ STARTS = tuple(range(2, 12))
 HOST_WORKERS = 6
 JITTER = 1e-6
 SAMPLER_ITERATIONS = 5
+SHARED_ITERATIONS = 200
+SHARED_SEED = 7700
+SAMPLER_STARTS = STARTS[:4]
+SAMPLER_PAIRS = (("card_fp32", "cpu_fp32"), ("card_fp64", "cpu_fp64"),
+                 ("card_fp32", "card_fp64"))
 PAIRS = (("card_fp64", "cpu_fp64"), ("card_fp32_eager", "card_fp32"),
          ("card_fp32", "cpu_fp32"))
 
@@ -262,20 +284,219 @@ def flutter_c5_ds64(device, iterations=SAMPLER_ITERATIONS) -> dict:
             "max_rel_leaf_card_vs_cpu": leaf_rel}
 
 
-def main(device=None, **kw) -> dict:
+def _sampler_trainer(case, dev, dtype):
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.data import create_dataset
+    from ffvd_tpu_torch.inference.particle_gibbs import make_pg_fn
+    from ffvd_tpu_torch.inference.trainer import Trainer
+    from ffvd_tpu_torch.model.params import SSMData
+    cfg = FFVDConfig(dataset="ballbeam", case=case)
+    ds = create_dataset("ballbeam")
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    return Trainer(cfg, SSMData(y=as_t(ds.y_train), control=as_t(ds.control)),
+                   pg_fn=make_pg_fn(cfg) if case == 6 else None)
+
+
+def _warm(dev, dtype):
+    from ffvd_tpu_torch.data import load_warmstart
+    from ffvd_tpu_torch.model.params import init_params_from_warmstart
+    return init_params_from_warmstart(load_warmstart("ballbeam"), device=dev,
+                                      dtype=dtype)
+
+
+def shared_draw(tr, i: int) -> dict:
+    """Iteration ``i``'s draws, made on the host in fp64 from a generator
+    seeded ``SHARED_SEED + i``: C6's sweep draws (``pg_draws``), or C2's 21
+    sub-steps' normals and its window feed."""
+    from ffvd_tpu_torch.inference.particle_gibbs import pg_draws
+    from ffvd_tpu_torch.inference.trainer import SUBSTEP_FLAGS
+    g = torch.Generator().manual_seed(SHARED_SEED + i)
+    host = _warm("cpu", torch.float64)
+    if tr.cfg.case_config.x_pg:
+        return {"pg": pg_draws(tr.cfg, host, g)}
+    sub = tr.subset.split(host)
+    return {"noise": {k: torch.randn((len(SUBSTEP_FLAGS),) + tuple(v.shape),
+                                     generator=g, dtype=torch.float64)
+                      for k, v in sub.items()},
+            "feed": int(torch.randint(0, min(i + 1, tr.cfg.window_size), (),
+                                      generator=g))}
+
+
+def _cast(d, dev, dtype):
+    if isinstance(d, dict):
+        return {k: _cast(v, dev, dtype) for k, v in d.items()}
+    if torch.is_tensor(d):
+        return d.to(dev, dtype if d.is_floating_point() else d.dtype)
+    return d
+
+
+def shared_run(case, dev, dtype, iterations, capture=None):
+    """``iterations`` of ballbeam C``case`` from the warm start on the
+    shared draws: (nll trace, leaves), as numpy."""
+    tr = _sampler_trainer(case, dev, dtype)
+    state = tr.init_state(_warm(dev, dtype))
+    draws = (_cast(shared_draw(tr, i), dev, dtype) for i in range(iterations))
+    state, trace = tr.run(state, iterations, capture=capture, draws=draws)
+    return (trace.cpu().numpy(),
+            {k: v.detach().cpu().numpy()
+             for k, v in state.params.leaves().items()})
+
+
+def _host_shared(case, dtype_name, iterations):
+    torch.set_num_threads(1)
+    return shared_run(case, "cpu", _dtype(dtype_name), iterations, False)
+
+
+def endpoint_rmse(case, leaves, device, draws):
+    """An endpoint's RMSEs in fp64 on ``device`` over ``draws``
+    evaluations with the shared rollout normals (a host generator seeded
+    0) and, for C2, the thinning normals of the model's generator seeded 0
+    (a fresh SG-HMC chain): every endpoint sees the same draws."""
+    from ffvd_tpu_torch.api import FFVDModel
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.model.params import params_from_numpy
+    model = FFVDModel(FFVDConfig(dataset="ballbeam", case=case, seed=0),
+                      device=device, dtype=torch.float64,
+                      params=params_from_numpy(leaves))
+    g = torch.Generator().manual_seed(0)
+    shape = (model.cfg.num_posterior_samples, model.dataset.n_test,
+             model.params.x.shape[1])
+    return [model.evaluate(noise=torch.randn(
+        shape, generator=g, dtype=torch.float64).to(model.device))["rmse"]
+        for _ in range(draws)]
+
+
+def member_state(trainer, state, i):
+    """Member ``i`` of a chain-stacked ``TrainState`` as a one-model state:
+    its leaves, SG-HMC chain and window (Adam starts afresh; ``evaluate``
+    does not read it)."""
+    from ffvd_tpu_torch.parallel.sharding import member
+    st = trainer.init_state(member(state.params, i))
+    with torch.no_grad():
+        if state.sghmc is not None:
+            st.sghmc.assign_(state.sghmc.map(lambda t: t[i]))
+        for k, w in state.window.items():
+            st.window[k].copy_(w[i])
+        st.counts.copy_(state.counts)
+    return st
+
+
+def jittered_chains(case, dev, dtype, iterations, starts):
+    """The ``starts`` (jittered by ``JITTER``) as the members of one
+    ``MultiChainTrainer`` on ``dev``: each member's leaves, its own
+    ``evaluate()`` RMSE and the group's seconds."""
+    from ffvd_tpu_torch.api import FFVDModel
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.eval.ensemble import jitter_params
+    from ffvd_tpu_torch.inference.particle_gibbs import make_pg_fn
+    from ffvd_tpu_torch.parallel.sharding import (MultiChainTrainer, member,
+                                                  stack_members)
+    models = [FFVDModel(FFVDConfig(dataset="ballbeam", case=case, seed=s),
+                        device=dev, dtype=dtype) for s in starts]
+    cfg = models[0].cfg
+    mct = MultiChainTrainer(cfg, models[0].data, len(starts),
+                            pg_fn=make_pg_fn(cfg) if case == 6 else None)
+    state = mct.init_state(stack_members([
+        jitter_params(m.params, JITTER, s) for m, s in zip(models, starts)]))
+    gen = torch.Generator(device=models[0].device).manual_seed(starts[0])
+    study_torch._sync(models[0].device)
+    t0 = time.time()
+    state, trace = mct.run(state, iterations, generator=gen)
+    study_torch._sync(models[0].device)
+    seconds = time.time() - t0
+    out = []
+    for i, m in enumerate(models):
+        m.state = member_state(m.trainer, state, i)
+        out.append({"leaves": {k: v.detach().cpu().numpy() for k, v
+                               in member(state.params, i).leaves().items()},
+                    "rmse_own": m.evaluate()["rmse"],
+                    "nll_last": float(trace[-1, i])})
+    return out, seconds
+
+
+def sampler_checks(device, case, iterations=SHARED_ITERATIONS,
+                   long_iterations=ITERATIONS, draws=DRAWS,
+                   starts=SAMPLER_STARTS, host=None, save=None) -> dict:
+    """S2 (case 2) or S4 (case 6): the shared-draw pairs, then the
+    jittered fp32 and fp64 chains on the card, every endpoint rolled out
+    in fp64 on the card with shared draws.  ``host``: the futures of
+    this case's host runs ({"cpu_fp32": ..., "cpu_fp64": ...}), submitted
+    by the caller so that they overlap the card's work; run here in one
+    process when None.  ``save(partial)`` is called after each stage."""
+    save = save or (lambda partial: None)
+    out = {"case": f"C{case}", "iterations": iterations,
+           "long_iterations": long_iterations, "draws": draws,
+           "starts": list(starts)}
+    t0 = time.time()
+    runs = {f"card_{p}": shared_run(case, device, _dtype(p), iterations)
+            for p in ("fp32", "fp64")}
+    runs.update({f"cpu_{p}": (host[f"cpu_{p}"].result() if host
+                              else _host_shared(case, p, iterations))
+                 for p in ("fp32", "fp64")})
+    rmse = {k: endpoint_rmse(case, r[1], device, draws)
+            for k, r in runs.items()}
+    out["pairs"] = {f"{a}|{b}": _pair(runs[a][0], runs[b][0])
+                    for a, b in SAMPLER_PAIRS}
+    out["shared"] = {k: {"nll_last": float(r[0][-1]),
+                         "rmse_fp64": rmse[k],
+                         "rmse_median": float(np.median(rmse[k]))}
+                     for k, r in runs.items()}
+    out["shared_seconds"] = time.time() - t0
+    save(out)
+    out["jittered"], out["jittered_seconds"] = {}, {}
+    for p in ("fp32", "fp64"):
+        members, out["jittered_seconds"][p] = jittered_chains(
+            case, device, _dtype(p), long_iterations, starts)
+        for s, m in zip(starts, members):
+            r = endpoint_rmse(case, m["leaves"], device, draws)
+            out["jittered"][f"card_{p}_s{s}"] = {
+                "nll_last": m["nll_last"], "rmse_own": m["rmse_own"],
+                "rmse_fp64": r, "rmse_median": float(np.median(r))}
+        save(out)
+    return out
+
+def main(device=None, sampler=None, out_path=None, **kw) -> dict:
     """The checks on ``device`` (the card unless the caller asks for the
-    CPU); ``kw`` goes to ``actuator_c4``."""
+    CPU): S1 and S3, ``kw`` going to ``actuator_c4``; or, with
+    ``sampler`` (a dict of ``sampler_checks`` keywords, ``{}`` for the
+    protocol's), S4 and S2, written to ``out_path`` after every stage."""
     from ffvd_tpu_torch.utils.device import resolve_device
     device = resolve_device(device)
     t0 = time.time()
     out = {"card": card_name(torch) if device.type == "cuda" else "cpu"}
-    out["actuator_c4"], points = actuator_c4(device, **kw)
-    out["fp32_gradient"] = fp32_gradient_error(device, points)
-    out["flutter_c5_ds64"] = flutter_c5_ds64(device)
+
+    def save(name):
+        def put(partial):
+            out[name] = partial
+            out["seconds"] = time.time() - t0
+            if out_path:
+                Path(out_path).write_text(json.dumps(out))
+            done = sorted(k for k in partial
+                          if k in ("pairs", "shared", "jittered"))
+            print(f"[{out['seconds']:.0f} s] {name}: {done}",
+                  file=sys.stderr, flush=True)
+        return put
+
+    if sampler is not None:
+        n = sampler.get("iterations", SHARED_ITERATIONS)
+        ctx = multiprocessing.get_context("spawn")
+        with cf.ProcessPoolExecutor(4, mp_context=ctx) as pool:
+            host = {case: {f"cpu_{p}": pool.submit(_host_shared, case, p, n)
+                           for p in ("fp32", "fp64")} for case in (6, 2)}
+            out["c6"] = sampler_checks(device, 6, host=host[6],
+                                       save=save("c6"), **sampler)
+            out["c2"] = sampler_checks(device, 2, host=host[2],
+                                       save=save("c2"), **sampler)
+    else:
+        out["actuator_c4"], points = actuator_c4(device, **kw)
+        out["fp32_gradient"] = fp32_gradient_error(device, points)
+        out["flutter_c5_ds64"] = flutter_c5_ds64(device)
     out["seconds"] = time.time() - t0
     print(json.dumps(out), flush=True)
     return out
 
 
 if __name__ == "__main__":
-    main()
+    args = sys.argv[1:]
+    main(sampler={} if "--sampler" in args else None,
+         out_path=args[args.index("--out") + 1] if "--out" in args else None)

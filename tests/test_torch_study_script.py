@@ -160,7 +160,30 @@ def test_arms_cover_the_jax_tags():
     runs = {a: [r["tag"] for r in mod.arm_runs(a)] for a in mod.ARMS}
     assert {a: len(t) for a, t in runs.items()} == {
         "c4_six": 6, "c2": 9, "c3": 6, "c5_ballbeam": 5, "c5_flutter": 10,
-        "c6_ballbeam": 5, "deep2": 6, "drive12k": 15}
+        "c6_ballbeam": 5, "deep2": 6, "drive12k": 15, "c6_ballbeam_fp64": 5,
+        "c2_fp64": 5, "actuator_prec": 22, "c6_drive": 8, "c6_live": 5,
+        "c6_p500": 11, "c6_matrix": 15, "ensemble": 27, "nll_slip": 8,
+        "coldstart": 15, "stall": 6, "escape": 7, "c2_precision": 10}
+    tags = [t for a in runs.values() for t in a]
+    assert len(tags) == len(set(tags))
+    # each JAX artifact's tags, the ensemble's under "ensemble/"
+    for name, arms in (("pg_c6_study.json", ("c6_ballbeam", "c6_drive",
+                                             "c6_live", "c6_p500",
+                                             "c6_matrix")),
+                       ("ensemble_study.json", ("ensemble",)),
+                       ("nll_study.json", ("nll_slip",)),
+                       ("hybrid_coldstart_study.json", ("coldstart",)),
+                       ("c2_precision_study.json", ("c2_precision",))):
+        jax_tags = set(json.loads((ROOT / "tests" / "golden" / name)
+                                  .read_text()))
+        ours = {t.replace("ensemble/", "") for a in arms for t in runs[a]}
+        assert ours == jax_tags - {"drive_C6_ancestor_s3_redraw"}, name
+    stall = set(json.loads((ROOT / "tests" / "golden" /
+                            "fp32_stall_study.json").read_text()))
+    assert set(runs["stall"]) <= stall
+    escape = set(json.loads((ROOT / "tests" / "golden" /
+                             "escape_validation.json").read_text()))
+    assert set(runs["escape"]) <= escape
     assert runs["c2"][:2] == ["ballbeam_C2", "ballbeam_C2_seed1"]
     assert "flutter_C5_s4_ds64" in runs["c5_flutter"]
     assert "drive_C4_deep2_seed2" in runs["deep2"]
@@ -226,3 +249,166 @@ def test_card_host_checks_run_on_the_cpu():
     assert out["fp32_gradient"]["median_card_over_host"] == 1.0
     assert fl["pairs"]["card_eager|card"]["bit_equal"]
     assert fl["pairs"]["card|cpu"]["max_rel_all"] < 1e-6
+
+
+# One record of each other arm kind (P=500 is left out: its sweep draws
+# are 0.5 GB a member on the host).
+NEW_TAGS = ("ballbeam_C6_ancestor_s0_fp64card", "ballbeam_C2_fp64card",
+            "actuator_hybrid_j0", "ballbeam_C6_live_s0",
+            "ballbeam_C6_live_s1", "ensemble/ballbeam",
+            "ensemble/ballbeam_1chain_n40spread", "drive_slip_seed1",
+            "kink_cold_hybrid_s0", "drive_polish2_s1",
+            "ballbeam_C2_dsprecal_s20")
+NEW_ARMS = ("c6_ballbeam_fp64,c2_fp64,actuator_prec,c6_live,ensemble,"
+            "nll_slip,coldstart,stall,c2_precision")
+
+
+@pytest.fixture(scope="module")
+def new_study(tmp_path_factory):
+    out = tmp_path_factory.mktemp("study_new") / "study.json"
+    mod = _script()
+    summary = mod.main(["--device", "cpu", "--dtype", "fp32", "--quick",
+                        "--arms", NEW_ARMS, "--match",
+                        "^(" + "|".join(NEW_TAGS) + ")$", "--out", str(out)])
+    return mod, summary, json.loads(out.read_text())
+
+
+def test_new_arms_records(new_study):
+    """The other arms at --quick, fp32 on the CPU: every record finite with
+    the fields its pin reads, the chains group as two members of one
+    trainer, the fp64 arms in fp64."""
+    mod, summary, doc = new_study
+    runs = doc["runs"]
+    assert sorted(summary["ran"]) == sorted(NEW_TAGS)
+    for tag in ("ballbeam_C6_ancestor_s0_fp64card", "ballbeam_C2_fp64card"):
+        assert runs[tag]["dtype"] == "fp64"
+    assert runs["ballbeam_C6_ancestor_s0_fp64card"]["mixing_mean"]
+    assert runs["actuator_hybrid_j0"]["collapse_precision"] == "hybrid"
+    for s in (0, 1):
+        rec = runs[f"ballbeam_C6_live_s{s}"]
+        assert rec["mode"] == "chains" and rec["chains"] == 2
+        assert rec["cfg"] == {"pg_ancestor_trace": False}
+        assert rec["iterations"] == mod.QUICK["c6"]
+        assert 0.0 < rec["mixing_mean"]["unique_frac"] <= 1.0
+    ens = runs["ensemble/ballbeam"]
+    assert ens["mode"] == "ensemble" and ens["chains"] == 4
+    assert len(ens["per_chain"]) == 4
+    assert all(math.isfinite(ens[k]) for k in ("rmse", "nll",
+                                               "nll_no_spread"))
+    one = runs["ensemble/ballbeam_1chain_n40spread"]
+    assert one["chains"] == 1 and math.isfinite(one["nll_no_spread"])
+    slip = runs["drive_slip_seed1"]
+    assert slip["cfg"] == {"rollout_qsqrt_dim0": True}
+    assert slip["v_first"] > 0 and len(slip["R"]) == 1
+    cold = runs["kink_cold_hybrid_s0"]
+    assert cold["iterations"] == mod.QUICK["cold"]
+    assert all(math.isfinite(cold[k]) for k in (
+        "nll_final_own_bound", "nll_final_ds64_bound", "rmse_h1",
+        "rmse_h5"))
+    pol = runs["drive_polish2_s1"]
+    assert pol["iterations"] == mod.QUICK["polish"]
+    assert math.isfinite(pol["v_first"])
+    dsp = runs["ballbeam_C2_dsprecal_s20"]
+    assert math.isfinite(dsp["final_elbo"]) and "clip_saturated" in dsp
+    for rec in runs.values():
+        assert rec["device"] == "cpu"
+        assert all(math.isfinite(rec[k]) for k in ("train_s", "iterations"))
+
+
+def test_polish_sets_the_phase_lr():
+    """A polish run's Adam ends at lr/100 of the trainer's after
+    ``polish2``; Adam's step count carries over the phases."""
+    mod = _script()
+    spec = [r for r in mod.arm_runs("stall")
+            if r["tag"] == "drive_polish2_s1"][0]
+    from ffvd_tpu_torch.api import FFVDModel
+    seen = []
+    orig = FFVDModel.fit
+
+    def fit(self, n=None, **kw):
+        seen.append((n, self.state.adam.param_groups[0]["lr"]))
+        return orig(self, n, **kw)
+
+    FFVDModel.fit = fit
+    try:
+        rec = mod.run_polish(spec, 8, torch.device("cpu"), torch.float64)
+    finally:
+        FFVDModel.fit = orig
+    base = FFVDModel(mod._config(spec), device="cpu").trainer.adam_lr
+    assert [n for n, _ in seen] == [4, 2, 2]
+    np.testing.assert_allclose([lr for _, lr in seen],
+                               [base, base / 10, base / 100], rtol=1e-12)
+    assert rec["iterations"] == 8
+
+
+def test_dsprecal_swaps_only_the_objectives_factorisation():
+    """Under ``dsprecal`` the C2 objective factorises Kmm in float64
+    (``ds_precal``) and returns to ``kernel_precal`` after; in fp64 the
+    two objectives agree within the float32 rounding of the inputs."""
+    mod = _script()
+    from ffvd_tpu_torch.api import FFVDModel
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.model import conditionals, elbo
+    m = FFVDModel(FFVDConfig(dataset="ballbeam", case=2), device="cpu")
+    with torch.no_grad():
+        native = float(m.trainer.train_nll(m.params))
+        with mod.dsprecal():
+            assert elbo.cond is not conditionals
+            assert elbo.cond.kernel_precal is not conditionals.kernel_precal
+            dd = float(m.trainer.train_nll(m.params))
+    assert elbo.cond is conditionals
+    assert dd != native
+    np.testing.assert_allclose(dd, native, rtol=1e-5)
+
+
+def test_chains_member_record_matches_one_model_runner():
+    """A chains-mode member's record (drive C6, two members of one
+    ``MultiChainTrainer``, 2 iterations with the mixing side sweep)
+    equals the one-model runner's on the same injected sweep draws at
+    rtol 1e-10."""
+    from ffvd_tpu_torch.api import FFVDModel
+    from ffvd_tpu_torch.inference.particle_gibbs import pg_draws
+    mod = _script()
+    specs = mod.arm_runs("c6_drive")[:2]
+    cfg = mod._config(specs[0])
+    params = FFVDModel(cfg, device="cpu").params
+    g = torch.Generator().manual_seed(31)
+    per = [[pg_draws(cfg, params, g) for _ in specs] for _ in range(2)]
+    chains = mod.run_chains(specs, 2, torch.device("cpu"), torch.float64,
+                            draws=[{"pg": d} for d in per])
+    assert sorted(chains) == sorted(s["tag"] for s in specs)
+    for i, spec in enumerate(specs):
+        model, train_s, mixing = mod.train(
+            spec, 2, "cpu", torch.float64,
+            draws=[{"pg": d[i]} for d in per])
+        one = mod.evaluated(model, spec, train_s, mixing)
+        rec = chains[spec["tag"]]
+        for k in ("rmse", "nll", "nll_first", "nll_last", "budget_s2C2",
+                  "max_Q"):
+            np.testing.assert_allclose(rec[k], one[k], rtol=1e-10, err_msg=k)
+        np.testing.assert_allclose(rec["Q"], one["Q"], rtol=1e-10)
+        for k, v in one["mixing_mean"].items():
+            np.testing.assert_allclose(rec["mixing_mean"][k], v, rtol=1e-10,
+                                       atol=1e-12, err_msg=k)
+        assert rec["chains"] == 2 and rec["iterations"] == 2
+
+
+def test_sampler_checks_run_on_the_cpu():
+    """``study_checks_torch.py --sampler`` at a few iterations with every
+    "card" run on the CPU: the shared-draw pairs of one dtype agree bit
+    for bit, every endpoint rolls out finite, each stage is saved."""
+    import sys
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import study_checks_torch
+    saved = []
+    out = study_checks_torch.sampler_checks(
+        torch.device("cpu"), 6, iterations=2, long_iterations=1, draws=1,
+        starts=(2, 3), save=lambda partial: saved.append(sorted(partial)))
+    assert len(saved) == 3 and "pairs" in saved[0]
+    assert out["pairs"]["card_fp32|cpu_fp32"]["bit_equal"]
+    assert out["pairs"]["card_fp64|cpu_fp64"]["bit_equal"]
+    assert sorted(out["jittered"]) == sorted(
+        f"card_{p}_s{s}" for p in ("fp32", "fp64") for s in (2, 3))
+    assert all(math.isfinite(r) for v in {**out["shared"],
+                                          **out["jittered"]}.values()
+               for r in v["rmse_fp64"])
