@@ -128,7 +128,12 @@ that each print one JSON line:
    ``evaluate()``; a second call skips every tag; 11b, the other arm
    families at ``--quick``: C6 live, C6 P=500 and drive C6 as chains
    groups, a C4 ensemble, the kink cold start under hybrid and ballbeam
-   C6 in fp64 on the card, one launch an ``evaluate()``;
+   C6 in fp64 on the card, one launch an ``evaluate()``; 11c, the last
+   arms at ``--quick``: flutter C5 and 12k in fp64, drive at x_dim 2, 4
+   and 6 (BASELINE config 4), one launch an ``evaluate()``, and LinearK
+   on gas_furnace and dryer (config 2), none; then the kernel at drive
+   x_dim 6's trained inputs (a cluster of six CTAs, 20 rollouts) against
+   the plain rollout;
 6. kernel timing with CUDA events at S=10 and S=64, shared and per-sample
    inputs, with the launch plan; fp32 at 80 per-sample rows and at M=512
    (global plan); and one ``{"kernels": [...]}`` line.
@@ -2887,6 +2892,122 @@ def phase_study_arms_quick(torch, ro, card, device="cuda"):
     return launches
 
 
+# The last arms at --quick: flutter in fp64 (C5 and the 12k run), BASELINE
+# config 4 (drive at x_dim 2, 4 and 6) and config 2 (LinearK); each tag's
+# iterations.  Every shallow evaluate() launches the kernel once; LinearK
+# rolls out on the torch recursion, no launch.
+STUDY_LAST_TAGS = {"flutter_C5_s0_fp64card": 3,
+                   "flutter_long12k_s1_fp64cpu": 50, "drive_xd2": 50,
+                   "drive_xd4": 50, "drive_xd6": 50}
+STUDY_LINEAR_TAGS = {"gas_furnace_C4_linear": 50, "dryer_C4_linear": 50}
+
+
+def model_rollout_inputs(torch, model, dtype, t_len):
+    """A fitted model's rollout inputs: the collapsed q(U) mean and factor,
+    Lm⁻¹, Q, the last training state and the first ``t_len`` test
+    controls, cast to ``dtype``."""
+    from ffvd_tpu_torch.eval.rollout import u_and_qsqrt
+    from ffvd_tpu_torch.model.conditionals import kernel_precal
+    from ffvd_tpu_torch.ops.kernels import KernelParams
+    params, data = model.params, model.data
+    with torch.no_grad():
+        pre = kernel_precal(model.cfg.kernel_type, params.kernel, params.z)
+        u_val, q_sqrt = u_and_qsqrt(model.trainer, params, data, pre)
+    n = model.dataset.n_train
+    cast = lambda t: t.detach().to(dtype).contiguous()
+    return dict(kparams=KernelParams(cast(params.kernel.log_variance),
+                                     cast(params.kernel.log_lengthscales)),
+                z=cast(params.z), lm_inv=cast(pre.lm_inv),
+                u_val=cast(u_val), q_sqrt=cast(q_sqrt), q=cast(params.q),
+                x0=cast(params.x[-1]),
+                controls=cast(data.control[n:n + t_len]))
+
+
+def phase_study_last_quick(torch, ro, card, device="cuda"):
+    """Phase 11c: the last study arms through ``scripts/study_torch.py
+    --quick`` in this process, into a temporary file: ``flutter_fp64`` and
+    ``config4`` (``STUDY_LAST_TAGS``: one rollout launch an
+    ``evaluate()``, x_dim 6 on a cluster of six CTAs), then ``config2``
+    (LinearK: no launch).  Every record finite, at its length, in its
+    dtype and settings.  Then drive at x_dim 6 with config 4's 20
+    rollouts, trained 50 iterations: the kernel against the plain rollout
+    on its inputs and shared noise, fp32 over the metric horizon and
+    fp64 throughout (those launches are not counted).  ``device="cpu"``
+    rehearses the study half on the host (no launches, no kernel)."""
+    import tempfile
+    study = _load_script(ROOT / "scripts" / "study_torch.py")
+    on_card = device == "cuda"
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "study.json"
+
+        def run(arms, tags):
+            ro.rollout.launches = 0          # this path starts here
+            res = study.main(["--quick", "--arms", arms, "--device", device,
+                              "--match", "^(" + "|".join(tags) + ")$",
+                              "--out", str(out)])
+            return res, ro.rollout.launches
+        shallow, launches = run("flutter_fp64,config4", STUDY_LAST_TAGS)
+        linear, linear_launches = run("config2", STUDY_LINEAR_TAGS)
+        runs = json.loads(out.read_text())["runs"]
+    want = {**STUDY_LAST_TAGS, **STUDY_LINEAR_TAGS}
+    emit("11c_study_last_quick", card=card, launches=launches,
+         linear_launches=linear_launches, seconds=time.time() - t0,
+         arm_seconds={**shallow["arm_seconds"], **linear["arm_seconds"]},
+         runs={t: {k: r[k] for k in ("iterations", "rmse", "nll", "dtype",
+                                     "it_per_s", "eval_ms")}
+               for t, r in runs.items()})
+    check(sorted(runs) == sorted(want),
+          f"11c: ran {sorted(runs)}, expected {sorted(want)}")
+    bad = [t for t, n in want.items()
+           if runs[t]["iterations"] != n
+           or not all(math.isfinite(v) for v in runs[t].values()
+                      if isinstance(v, float))]
+    check(not bad, f"11c: records not finite or cut wrong: {bad}")
+    check(all(runs[t]["dtype"] == "fp64" for t in want if "fp64" in t)
+          and runs["drive_xd6"]["cfg"]["x_dim"] == 6
+          and runs["dryer_C4_linear"]["cfg"]["kernel_type"] == "LinearK",
+          f"11c: settings {[(t, r['dtype'], r.get('cfg')) for t, r in runs.items()]}")
+    check(launches == (len(STUDY_LAST_TAGS) if on_card else 0)
+          and linear_launches == 0,
+          f"11c: {launches} rollout launches for {len(STUDY_LAST_TAGS)} "
+          f"evaluate() calls, {linear_launches} on LinearK")
+    if not on_card:
+        return launches
+    from ffvd_tpu_torch.api import FFVDModel
+    from ffvd_tpu_torch.config import FFVDConfig
+    model = FFVDModel(FFVDConfig(dataset="drive", case=4, x_dim=6,
+                                 num_posterior_samples=20,
+                                 posterior_sample_spacing=50), device="cuda")
+    model.fit(50)
+    n_s, t_len = 20, model.dataset.n_test
+    gen = torch.Generator().manual_seed(66)
+    noise = torch.randn((n_s, t_len, 6), generator=gen, dtype=torch.float64)
+    errs = {}
+    for name, dtype in (("fp64", torch.float64), ("fp32", torch.float32)):
+        inp = model_rollout_inputs(torch, model, dtype, t_len)
+        nz = noise.to("cuda", dtype)
+        xk, vk = call(ro.rollout, inp, True, noise=nz, num_samples=n_s)
+        plan = ro.rollout.last_plan
+        xr, vr = call(ro.rollout_reference, inp, True, noise=nz,
+                      num_samples=n_s)
+        torch.cuda.synchronize()
+        h = slice(None) if name == "fp64" else slice(0, HORIZON)
+        rtol, atol = (1e-9, 1e-12) if name == "fp64" else (1e-4, 1e-5)
+        ok = (torch.allclose(xk[:, h], xr[:, h], rtol=rtol, atol=atol)
+              and torch.allclose(vk[:, h], vr[:, h], rtol=rtol, atol=atol))
+        errs[name] = max(float((xk[:, h] - xr[:, h]).abs().max()),
+                         float((vk[:, h] - vr[:, h]).abs().max()))
+        check(ok and plan.cluster == 6 and bool(torch.isfinite(xk).all()),
+              f"11c: x_dim 6 kernel vs plain {name}: err {errs[name]}, "
+              f"plan {plan._asdict()}")
+    emit("11c_xdim6_kernel_vs_plain", max_abs_err=errs, samples=n_s,
+         steps=t_len, plan=plan._asdict(), tolerance={
+             "fp64": "rtol 1e-9, atol 1e-12, all steps",
+             "fp32": f"rtol 1e-4, atol 1e-5, first {HORIZON} steps"})
+    return launches
+
+
 def phase_timing(torch, ro):
     """Phase 6: kernel and plain-version times at the main shapes, the
     kernel's time at S=64 beside them (64 clusters queue past 132 SMs), and
@@ -3043,6 +3164,8 @@ def main() -> int:
     study_launches = timed("study_quick", phase_study_quick, torch, ro,
                            card)
     timed("study_arms_quick", phase_study_arms_quick, torch, ro, card)
+    study_last = timed("study_last_quick", phase_study_last_quick, torch, ro,
+                       card)
     timing = timed("timing", phase_timing, torch, ro)
     emit("phase_seconds", **seconds, total=time.time() - t0)
 
@@ -3067,6 +3190,7 @@ def main() -> int:
             "six_datasets_m512": six, **mesh["launches"],
             "bench_torch_quick": bench_launches,
             "study_quick_11": study_launches,
+            "study_last_quick_11c": study_last,
             **{f"example_{k}": v for k, v in example_launches.items()}},
         "fp32_s80_per_sample": {k: timing["fp32_s80_per_sample"][k] for k in
                                 ("ms", "plain_ms", "bound_ms", "bound_by")},

@@ -107,6 +107,22 @@ and raises where there is no card.
   seeds 20-24, native and "dsprecal": ``model/ds_collapse.py::ds_precal``
   (the Kmm factorisation in float64) in place of ``kernel_precal`` in the
   C2 objective, substituted here as the JAX script substitutes it.
+
+**The last arms** (ROADMAP Queue 3, F2, and item 23):
+
+- ``flutter_fp64``: flutter in fp64 on the same device, the float64
+  reference the ds64 runs of ``c5_flutter`` and ``stall`` are read
+  against: C5 seeds 0-4 (``flutter_C5_s0..4_fp64card``) and the ``stall``
+  arm's flutter C4 12k (``flutter_long12k_s1_fp64cpu``, the JAX study's
+  tag pattern for its fp64 control);
+- ``config4``: BASELINE.md config 4, C4 on drive and flutter at
+  ``x_dim`` 2, 4 and 6 with ``num_posterior_samples=20`` and
+  ``posterior_sample_spacing=50`` (keys of ``tests/golden/
+  ours_config4_xdims.json``: ``drive_xd2`` .. ``flutter_xd6``;
+  ``--quick`` keeps drive's three, so the x_dim 6 launch is exercised);
+- ``config2``: BASELINE.md config 2, C4 with ``kernel_type="LinearK"``
+  on gas_furnace and dryer (``gas_furnace_C4_linear``,
+  ``dryer_C4_linear``; the JAX package has no record of them).
 """
 
 from __future__ import annotations
@@ -138,7 +154,8 @@ OUT = ROOT / "tests" / "golden_torch" / "study_h100.json"
 ARMS = ("c4_six", "c2", "c3", "c5_ballbeam", "c5_flutter", "c6_ballbeam",
         "deep2", "drive12k", "c6_ballbeam_fp64", "c2_fp64", "actuator_prec",
         "c6_drive", "c6_live", "c6_p500", "c6_matrix", "ensemble",
-        "nll_slip", "coldstart", "stall", "escape", "c2_precision")
+        "nll_slip", "coldstart", "stall", "escape", "c2_precision",
+        "flutter_fp64", "config4", "config2")
 SIX = ("ballbeam", "drive", "gas_furnace", "dryer", "actuator", "flutter")
 FULL = {"c4": 4000, "sampler": 4000, "c6": 4000, "12k": 12000,
         "cold": 4000, "polish": 8000}
@@ -300,6 +317,20 @@ def arm_runs(arm: str) -> list:
                       "sampler", s == 20, extra={"dsprecal": dsp})
                 for s in range(20, 25)
                 for name, dsp in (("native", False), ("dsprecal", True))]
+    if arm == "flutter_fp64":
+        return ([_spec(f"flutter_C5_s{s}_fp64card", arm, "flutter", 5, s,
+                       "sampler", s == 0, dtype="fp64") for s in range(5)]
+                + [_spec("flutter_long12k_s1_fp64cpu", arm, "flutter", 4, 1,
+                         "12k", True, dtype="fp64")])
+    if arm == "config4":
+        return [_spec(f"{ds}_xd{xd}", arm, ds, 4, 0, "c4", ds == "drive",
+                      cfg={"x_dim": xd, "num_posterior_samples": 20,
+                           "posterior_sample_spacing": 50})
+                for ds in ("drive", "flutter") for xd in (2, 4, 6)]
+    if arm == "config2":
+        return [_spec(f"{ds}_C4_linear", arm, ds, 4, 0, "c4", True,
+                      cfg={"kernel_type": "LinearK"})
+                for ds in ("gas_furnace", "dryer")]
     raise ValueError(f"unknown arm {arm!r}; the arms are {', '.join(ARMS)}")
 
 

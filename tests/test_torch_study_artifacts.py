@@ -76,10 +76,11 @@ TAGS = {
         ("gas_furnace", "ancestor"), ("dryer", "ancestor"),
         ("flutter", "ancestor"), ("actuator", "ancestor"),
         ("flutter", "deep2")) for s in range(3)],
-    # the 24 C4 entries; the sampler ones (flutter_C5, ballbeam_C2_ens4,
-    # flutter_C6_ens4) are still to run (ROADMAP item 22)
+    # the 24 C4 entries and the three sampler ones
     "ensemble": [f"ensemble/{ds}{x}" for ds in SIX for x in (
-        "", "_1chain_n40spread", "_jit4", "_deep2_ens4")],
+        "", "_1chain_n40spread", "_jit4", "_deep2_ens4")] + [
+        "ensemble/flutter_C5", "ensemble/ballbeam_C2_ens4",
+        "ensemble/flutter_C6_ens4"],
     "nll_slip": [f"{ds}_slip_seed{s}" for ds in ("drive", "flutter")
                  for s in (1, 2, 3)] + [f"{ds}_slip_fp64cpu_s1"
                                         for ds in ("drive", "flutter")],
@@ -88,6 +89,16 @@ TAGS = {
     "stall": ["flutter_long12k_s1", "flutter_long12k_s1_ds64"] + [
         f"{ds}_{n}_s1" for ds in ("drive", "flutter")
         for n in ("polish", "polish2")],
+    "escape": [f"flutter_C5_s{s}_hybrid" for s in range(4)] + [
+        f"flutter_C5_sp10_s{s}" for s in range(3)],
+    "c2_precision": [f"ballbeam_C2_{n}_s{s}" for s in range(20, 25)
+                     for n in ("native", "dsprecal")],
+    # flutter in fp64 (ROADMAP Queue 3, F2) and BASELINE configs 4 and 2
+    "flutter_fp64": [f"flutter_C5_s{s}_fp64card" for s in range(5)] + [
+        "flutter_long12k_s1_fp64cpu"],
+    "config4": [f"{ds}_xd{xd}" for ds in ("drive", "flutter")
+                for xd in (2, 4, 6)],
+    "config2": [f"{ds}_C4_linear" for ds in ("gas_furnace", "dryer")],
 }
 CHAINS = ("c6_drive", "c6_live", "c6_p500", "c6_matrix")
 
@@ -175,7 +186,8 @@ def test_p1_c4_six_datasets(runs, tf, ours, ds):
 
 
 @_missed("S2", "the card's 9 C2 seeds reach 0.0133 at best, its 5 fp64 "
-         "seeds 0.0113: not fp32 rounding")
+         "seeds 0.0113: not fp32 rounding; JAX's own fp64 C6 on the CPU "
+         "lands with the port's (S4), not at its TPU record")
 def test_p2_c2_best_seed_matches_reference(runs, tf):
     """P2 (``test_study_artifacts.py:423-441``): the best of 9 C2 seeds
     under 1.5 × the best TF C2 run (0.00606)."""
@@ -221,7 +233,8 @@ def _flutter_c5(runs):
 
 
 @_missed("S3", "flutter C5 under the port's IEEE float64 segment, "
-         "fp64's dynamics rather than double-single's, median 0.930")
+         "fp64's dynamics rather than double-single's, median 0.930 "
+         "(F2: the card's fp64 budgets 1.62-5.91 sit with ds64's)")
 def test_p5_c5_flutter_ds64_in_fp64_bracket(runs):
     """P5 (``test_study_artifacts.py:224-247``): under ds64 the flutter C5
     median at most 0.80 (the fp64 anchors 0.672 / 0.768) and every seed
@@ -246,7 +259,8 @@ def test_p5_c5_flutter_no_clip_saturation(runs):
 
 
 @_missed("S4", "the card's C6 median 0.0135 and max 0.0370, in fp64 "
-         "0.0170 and 0.0286: not fp32 rounding")
+         "0.0170 and 0.0286: not fp32 rounding; the JAX package's own fp64 "
+         "on the CPU: median 0.0154, max 0.0421 (jax_c6_fp64cpu.json)")
 def test_p6_c6_in_reference_regime(runs, tf):
     """P6 (``test_study_artifacts.py:331-345``): the 5-seed ancestor-trace
     C6 median within [min, max + 0.005] of the TF reference's C6 runs, and
@@ -531,7 +545,7 @@ def test_p22_hybrid_serves_cold_starts(runs):
 
 @_missed("S9", "flutter C4 12k under the port's IEEE float64 segment: "
          "RMSE 0.4498 against fp32's 8.8259, but the budget 39.26 against "
-         "fp32's 0.2311")
+         "fp32's 0.2311 (F2: the JAX package's own fp64 reaches 37.04)")
 def test_p23_ds64_flutter_beats_fp32(runs):
     """P23 (``test_study_artifacts.py:188-194``): flutter C4 over 12,000
     iterations, the ds64 RMSE under 0.5 × fp32's and its budget Σσ²C²
@@ -540,3 +554,76 @@ def test_p23_ds64_flutter_beats_fp32(runs):
     fp32 = runs["flutter_long12k_s1"]
     assert ds64["rmse"] < 0.5 * fp32["rmse"], (ds64["rmse"], fp32["rmse"])
     assert ds64["budget_s2C2"] < 0.25 * fp32["budget_s2C2"]
+
+
+@_missed("S10", "the card's 4 hybrid flutter C5 seeds 0.4794, 0.7039, "
+         "0.4992, 1.1984 (median 0.6016): its native fp32 flutter C5 "
+         "(median 0.518) has no TPU-level residual for the tail to leave")
+def test_p24_hybrid_tail_does_not_close_flutter_c5(runs):
+    """P24 (``test_study_artifacts.py:313-324``): a 500-iteration ds64
+    tail after native fp32 burn-in leaves flutter C5 at the native level:
+    the median of the 4 hybrid seeds above 1.0."""
+    hyb = [runs[f"flutter_C5_s{s}_hybrid"]["rmse"] for s in range(4)]
+    assert statistics.median(hyb) > 1.0, hyb
+
+
+@_missed("S11", "the card's dsprecal C2 seeds 0.0037-0.0181 (range "
+         "0.0144) against native's 0.0091-0.1142 (range 0.1051): on the "
+         "card the float64 Kmm factorisation narrows the 5-seed spread")
+def test_p25_c2_noise_not_factorization_error(runs):
+    """P25 (``test_study_artifacts.py:442-453``): the Kmm factorisation in
+    float64 in every C2 gradient evaluation does not tighten the seed
+    spread: dsprecal's range above half of native's, its median above
+    half of native's.  The time clause (``:454-461``, dsprecal at least 3×
+    native's train time) measured double-single on the TPU; the card's
+    ratio is recorded in PERF.md."""
+    nat = [runs[f"ballbeam_C2_native_s{s}"]["rmse"] for s in range(20, 25)]
+    dsp = [runs[f"ballbeam_C2_dsprecal_s{s}"]["rmse"]
+           for s in range(20, 25)]
+    assert max(dsp) - min(dsp) > 0.5 * (max(nat) - min(nat)), (dsp, nat)
+    assert statistics.median(dsp) > 0.5 * statistics.median(nat), (dsp, nat)
+
+
+@pytest.mark.parametrize("tag", TAGS["config4"] + TAGS["config2"])
+def test_baseline_configs_train(runs, tag):
+    """BASELINE.md configs 4 (drive and flutter at x_dim 2, 4, 6, 20
+    rollouts 50 apart) and 2 (LinearK on gas_furnace and dryer): the run
+    is there at the protocol's length, its RMSE and NLL finite, and its
+    training nll falls.  The JAX package fixed no bound for them."""
+    rec = runs[tag]
+    assert rec["iterations"] == 4000
+    assert math.isfinite(rec["rmse"]) and math.isfinite(rec["nll"])
+    assert rec["nll_last"] < rec["nll_first"], rec
+    want = ({"kernel_type": "LinearK"} if tag.endswith("_linear") else
+            {"x_dim": int(tag[-1]), "num_posterior_samples": 20,
+             "posterior_sample_spacing": 50})
+    assert rec["cfg"] == want
+
+
+@pytest.mark.parametrize("tag", TAGS["flutter_fp64"])
+def test_flutter_fp64_reference_present(runs, tag):
+    """ROADMAP Queue 3, F2: flutter's float64 runs on the card, the
+    reference the ds64 runs are read against: in fp64, at the protocol's
+    length, native collapse, finite RMSE, NLL and budget."""
+    rec = runs[tag]
+    assert rec["dtype"] == "fp64" and rec["device"] == "cuda"
+    assert rec["collapse_precision"] == "native"
+    assert rec["iterations"] == (12000 if "long12k" in tag else 4000)
+    for k in ("rmse", "nll", "budget_s2C2"):
+        assert math.isfinite(rec[k]), (k, rec[k])
+
+
+def test_jax_c6_fp64_population_recorded():
+    """ROADMAP Queue 3, S4/S2: ``tests/golden_torch/jax_c6_fp64cpu.py``'s
+    record of the JAX package's own ballbeam C6 in float64 on the CPU:
+    at least one seed, each recorded seed at the full 4000 iterations with
+    a finite RMSE and NLL and its mixing side sweeps."""
+    doc = json.loads((ROOT / "tests" / "golden_torch"
+                      / "jax_c6_fp64cpu.json").read_text())
+    runs_ = doc["runs"]
+    assert runs_
+    for tag, rec in runs_.items():
+        assert re.fullmatch(r"ballbeam_C6_ancestor_s[0-4]_jaxfp64cpu", tag)
+        assert rec["iterations"] == 4000 and rec["dtype"] == "fp64"
+        assert math.isfinite(rec["rmse"]) and math.isfinite(rec["nll"])
+        assert len(rec["mixing_seq"]) == 10

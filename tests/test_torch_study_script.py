@@ -163,7 +163,8 @@ def test_arms_cover_the_jax_tags():
         "c6_ballbeam": 5, "deep2": 6, "drive12k": 15, "c6_ballbeam_fp64": 5,
         "c2_fp64": 5, "actuator_prec": 22, "c6_drive": 8, "c6_live": 5,
         "c6_p500": 11, "c6_matrix": 15, "ensemble": 27, "nll_slip": 8,
-        "coldstart": 15, "stall": 6, "escape": 7, "c2_precision": 10}
+        "coldstart": 15, "stall": 6, "escape": 7, "c2_precision": 10,
+        "flutter_fp64": 6, "config4": 6, "config2": 2}
     tags = [t for a in runs.values() for t in a]
     assert len(tags) == len(set(tags))
     # each JAX artifact's tags, the ensemble's under "ensemble/"
@@ -184,6 +185,16 @@ def test_arms_cover_the_jax_tags():
     escape = set(json.loads((ROOT / "tests" / "golden" /
                              "escape_validation.json").read_text()))
     assert set(runs["escape"]) <= escape
+    # BASELINE config 4 under the keys of JAX's x_dim record; flutter's
+    # fp64 runs under the fp64 tag patterns of the JAX studies
+    config4 = set(json.loads((ROOT / "tests" / "golden" /
+                              "ours_config4_xdims.json").read_text()))
+    assert set(runs["config4"]) == config4
+    assert runs["flutter_fp64"] == [
+        t + "_fp64card" for t in runs["c5_flutter"][:5]] + [
+        runs["stall"][0] + "_fp64cpu"]
+    assert "drive_long12k_s1_fp64cpu" in stall
+    assert runs["config2"] == ["gas_furnace_C4_linear", "dryer_C4_linear"]
     assert runs["c2"][:2] == ["ballbeam_C2", "ballbeam_C2_seed1"]
     assert "flutter_C5_s4_ds64" in runs["c5_flutter"]
     assert "drive_C4_deep2_seed2" in runs["deep2"]
@@ -412,3 +423,46 @@ def test_sampler_checks_run_on_the_cpu():
     assert all(math.isfinite(r) for v in {**out["shared"],
                                           **out["jittered"]}.values()
                for r in v["rmse_fp64"])
+
+
+# The last arms: flutter's 12k run in fp64, BASELINE config 4 at x_dim 2
+# and 6, config 2 (LinearK) on both datasets.
+LAST_TAGS = ("flutter_long12k_s1_fp64cpu", "drive_xd2", "drive_xd6",
+             "gas_furnace_C4_linear", "dryer_C4_linear")
+
+
+def test_last_arms_records(tmp_path):
+    """``flutter_fp64``, ``config4`` and ``config2`` at --quick, fp32 on
+    the CPU: the fp64 run in fp64 at the 12k arm's quick length, the
+    config 4 runs at their x_dim with 20 rollouts 50 apart and a latent
+    state of that width, LinearK on its two datasets; every record finite
+    with the fields the pins read; ``--quick`` keeps drive's three x_dims
+    and both config 2 runs."""
+    mod = _script()
+    quick = [r["tag"] for a in ("flutter_fp64", "config4", "config2")
+             for r in mod.arm_runs(a) if r["first"]]
+    assert quick == ["flutter_C5_s0_fp64card", "flutter_long12k_s1_fp64cpu",
+                     "drive_xd2", "drive_xd4", "drive_xd6",
+                     "gas_furnace_C4_linear", "dryer_C4_linear"]
+    out = tmp_path / "study.json"
+    summary = mod.main(["--device", "cpu", "--dtype", "fp32", "--quick",
+                        "--arms", "flutter_fp64,config4,config2", "--match",
+                        "^(" + "|".join(LAST_TAGS) + ")$", "--out",
+                        str(out)])
+    runs = json.loads(out.read_text())["runs"]
+    assert sorted(summary["ran"]) == sorted(LAST_TAGS)
+    fp64 = runs["flutter_long12k_s1_fp64cpu"]
+    assert fp64["dtype"] == "fp64" and fp64["arm"] == "flutter_fp64"
+    assert fp64["iterations"] == mod.QUICK["12k"]
+    for xd in (2, 6):
+        rec = runs[f"drive_xd{xd}"]
+        assert rec["cfg"] == {"x_dim": xd, "num_posterior_samples": 20,
+                              "posterior_sample_spacing": 50}
+        assert len(rec["Q"]) == xd and rec["dtype"] == "fp32"
+    for ds in ("gas_furnace", "dryer"):
+        assert runs[f"{ds}_C4_linear"]["cfg"] == {"kernel_type": "LinearK"}
+    for tag, rec in runs.items():
+        assert rec["iterations"] == (mod.QUICK["12k"] if "12k" in tag
+                                     else mod.QUICK["c4"]), tag
+        assert all(math.isfinite(rec[k]) for k in NUMBERS), tag
+        assert rec["nll_last"] < rec["nll_first"], tag
