@@ -71,13 +71,25 @@ that each print one JSON line:
    of C5 for 3 with injected draws; a checkpoint resume on the card (C5
    fp32, the CUDA generator restored) bit-equal to the uninterrupted run;
 7. the mesh half of ``parallel/`` across processes (``phase_mesh``): 7a
-   NCCL at world size 1, mesh (1, 1), 8 C4 chains fp32, bit-equal to one
-   process; 7b gloo, 4 ranks sharing the card, dp=2 × ep=2: C4 and C5
-   chains in fp64 against one process, the chains' moments in 2 launches
-   of 40 rows against one of 80, 200 fp32 iterations timed, six datasets ×
-   M=512 and their ``evaluate()``; 7c gloo, 4 ranks, sp=4: kink N=5000 C4
-   in fp64 against one process, fp32 timed; 7d the same on NCCL over 4
-   cards, or ``{"phase": "7d", "ran": false, "cards": n}``;
+   NCCL at world size 1, mesh (1, 1), 8 C4 chains fp32, captured and
+   eagerly, both bit-equal to one process; 7b gloo, 4 ranks sharing the
+   card, dp=2 × ep=2: C4 and C5 chains in fp64 against one process, the
+   chains' moments in 2 launches of 40 rows against one of 80, 200 fp32
+   iterations timed, six datasets × M=512 and their ``evaluate()``, and
+   the capture rule (the step all-reduces over 'ep' on gloo: the default
+   ran it eagerly, ``capture=True`` raised); 7c gloo, 4 ranks, sp=4: kink
+   N=5000 C4 in fp64 against one process, fp32 timed; 7e gloo, the same 4
+   ranks, dp=4 × ep=1, each rank's step captured: 8 C4 chains fp64 for
+   20 iterations, 4 C5 chains for 3, 4 C6 chains (P=100) for 3 and 4 deep
+   flutter C4 chains for 3, each against its eager run (rtol 1e-12) and
+   one process (1e-10), one replay an iteration, 3 more under sync debug
+   "error"; the C4 chains' moments in 4 launches of 20 rows (rows offset)
+   against one of 80, the C5 chains' captured thinning (10 × 32
+   sub-steps) and the deep chains' captured recursion against eager; 8 C4
+   chains fp32, 200 iterations captured and 200 eager, ms an iteration
+   beside one process's captured 8 chains; 7d 7b and 7c on NCCL over 4 cards, eagerly
+   and captured (``capture=True``, the all-reduces inside the graph), or
+   ``{"phase": "7d", "ran": false, "cards": n}``;
 8a. checkpoints of a meshed run, in 7b's 4 gloo ranks sharing the card,
    dp=2 × ep=2, 8 ballbeam C4 chains fp32, 10 iterations, a checkpoint, a
    restore into a fresh state, 10 more: bit-equal to 20 uninterrupted meshed
@@ -139,9 +151,13 @@ that each print one JSON line:
    (global plan); and one ``{"kernels": [...]}`` line.
 
 Every training ``run``, thinning and LinearK or deep rollout above takes
-the default, a replayed CUDA graph on the card; phases 9 and 10 and the
-profile script (``scripts/profile_torch_train.py``) set ``capture=False``
-to compare.
+the default, a replayed CUDA graph on the card (a meshed step whose
+all-reduces run on gloo, 7b and 7c, stays eager); phases 7, 9 and 10 and
+the profile script (``scripts/profile_torch_train.py``) set
+``capture=False`` to compare.
+
+``python3 chip_smoke.py --nccl-cards`` builds the kernel and runs phase
+7d alone, on a machine with 4 cards.
 
 The last lines are the card's name and power limit, the kernels line, and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  Without
@@ -2357,22 +2373,32 @@ def _breakdown(torch, ro, inp):
 # Phase 7: the mesh half of parallel/ across processes
 # ---------------------------------------------------------------------------
 
-def _chain_spec(name, c, case, dtype, iters, seed=0, **extra):
-    """A ``rank_jobs`` spec: ``name``'s warm start stacked over ``c``
-    chains, each leaf + 1e-3·N(0, 1) a chain (numpy, ``seed``)."""
+def _chain_spec(name, c, case, dtype, iters, seed=0, n_layers=1, **extra):
+    """A ``rank_jobs`` spec: ``name``'s warm start (with ``n_layers`` − 1
+    near-identity hidden layers, as ``FFVDModel`` grafts them) stacked over
+    ``c`` chains, each leaf + 1e-3·N(0, 1) a chain (numpy, ``seed``)."""
+    import dataclasses
+
     import numpy as np
+    import torch
 
     from ffvd_tpu_torch.data import create_dataset, load_warmstart
-    from ffvd_tpu_torch.model.params import (init_params_from_warmstart,
+    from ffvd_tpu_torch.model.params import (init_hidden_layers,
+                                             init_params_from_warmstart,
                                              params_to_numpy)
     ds = create_dataset(name)
-    one = params_to_numpy(init_params_from_warmstart(load_warmstart(name)))
+    params = init_params_from_warmstart(load_warmstart(name))
+    if n_layers > 1:
+        params = dataclasses.replace(params, hidden=init_hidden_layers(
+            n_layers - 1, params, generator=torch.Generator().manual_seed(
+                seed)))
+    one = params_to_numpy(params)
     rng = np.random.RandomState(seed)
     leaves = {k: np.stack([v + 1e-3 * rng.randn(*v.shape) for _ in range(c)])
               for k, v in one.items()}
-    return dict(cfg=dict(dataset=name, case=case), dtype=dtype,
-                leaves=leaves, y=ds.y_train, control=ds.control, iters=iters,
-                seed=seed, **extra)
+    return dict(cfg=dict(dataset=name, case=case, n_layers=n_layers),
+                dtype=dtype, leaves=leaves, y=ds.y_train, control=ds.control,
+                iters=iters, seed=seed, **extra)
 
 
 def _kink_spec(dtype, iters, **extra):
@@ -2511,6 +2537,200 @@ def _check_sp(torch, ranks, singles, what, on_card=True, prefix="kink"):
     return rep
 
 
+# 7e's replays of each captured step under sync debug "error".  Each 7e
+# job runs twice in the same 4 gloo ranks sharing the card: with the
+# default (captured: a 'dp'-only step issues no collective) and with
+# ``capture=False``.  Its C4 specs are 7b's but for the mesh, so 7b's
+# one-process runs serve them.
+DP_ONLY_SYNC_REPLAYS = 3
+
+
+def _dp_only_plan():
+    """7e's jobs (name, kind, spec), captured then eager, and the specs."""
+    dp = dict(mesh=(4, 1), sync_check=DP_ONLY_SYNC_REPLAYS)
+    specs = {
+        "C4x8_fp64": _chain_spec(
+            "ballbeam", 8, 4, "float64", 20,
+            moments=dict(test_len=T, seed=1, check_whole=True), **dp),
+        "C5x4_thin_fp64": _chain_spec(
+            "ballbeam", 4, 5, "float64", 3,
+            moments=dict(test_len=T, seed=3), **dp),
+        "C6x4_fp64": _chain_spec("ballbeam", 4, 6, "float64", 3, **dp),
+        "deep_C4x4_fp64": _chain_spec(
+            "flutter", 4, 4, "float64", 3, n_layers=2,
+            moments=dict(test_len=T, seed=2), **dp),
+        "C4x8_fp32_timed": _chain_spec("ballbeam", 8, 4, "float32", 10,
+                                       timed=200, **dp)}
+    plan = []
+    for name, spec in specs.items():
+        eager = dict(spec, capture=False, sync_check=None)
+        if "moments" in spec:
+            eager["moments"] = dict(spec["moments"], check_whole=False)
+        plan += [(f"7e_{name}", "chains", spec),
+                 (f"7e_{name}_eager", "chains", eager)]
+    return plan, specs
+
+
+def _check_dp_only(torch, ranks, singles, specs, what, on_card=True):
+    """7e's checks on the ranks' results against their eager twins (1e-12
+    of each tensor's scale, phases 9 and 10's bar) and the one-process
+    runs on the card (1e-10 likewise; 2 chains a rank against 8 in one
+    batch round apart): one replay an iteration, none of them syncing, the
+    recursion and the C5 chains' thinning likewise (one replay a step or
+    sub-step), the C4 chains' moments from 4 offset launches of 20 rows
+    equal to one 80-row launch.  Returns the report."""
+    from ffvd_tpu_torch.config import FFVDConfig
+    from ffvd_tpu_torch.utils.graphs import WARMUP
+    rep = {}
+    for name in ("C4x8_fp64", "C5x4_thin_fp64", "C6x4_fp64",
+                 "deep_C4x4_fp64"):
+        cap = [r[f"7e_{name}"][0] for r in ranks]
+        eag = [r[f"7e_{name}_eager"][0] for r in ranks]
+        vs_eager = [_diff(torch, c, e, 1e-12, 0.0) for c, e in zip(cap, eag)]
+        vs_one = [_diff(torch, c, singles[name], 1e-10, 1e-12) for c in cap]
+        n = specs[name]["iters"]
+        replays = [c["replays"] for c in cap]
+        after = [c.get("replays_after_sync_check") for c in cap]
+        want = n - WARMUP if on_card else None
+        rep[name] = {
+            "captured_vs_eager_max_rel_diff": max(x[0] for x in vs_eager),
+            "captured_vs_eager_bit_equal": all(x[2] for x in vs_eager),
+            "vs_one_process_max_rel_diff": max(x[0] for x in vs_one),
+            "replays_by_rank": replays,
+            "replays_after_sync_check_by_rank": after,
+            "eager_replays_by_rank": [e["replays"] for e in eag],
+            "step_collectives": cap[0]["step_collectives"],
+            "seconds_captured": [r[f"7e_{name}"][1] for r in ranks],
+            "seconds_eager": [r[f"7e_{name}_eager"][1] for r in ranks]}
+        check(max(x[0] for x in vs_eager) <= 1e-12
+              and max(x[0] for x in vs_one) <= 1e-10
+              and all(x == want for x in replays)
+              and all(x == (want + DP_ONLY_SYNC_REPLAYS if on_card else None)
+                      for x in after)
+              and all(e["replays"] is None for e in eag)
+              and all(c["step_collectives"] == () for c in cap),
+              f"{what} {name}: {rep[name]}")
+        if "moments" in specs[name]:
+            m_eager = max(max(_moments_diff(c["moments"], e["moments"]))
+                          for c, e in zip(cap, eag))
+            m_one = max(max(_moments_diff(c["moments"],
+                                          singles[name]["moments"]))
+                        for c in cap)
+            rep[name].update(
+                moments_captured_vs_eager=m_eager,
+                moments_vs_one_process=m_one,
+                rollout_calls_by_rank=[c["rollout_calls"] for c in cap],
+                launch_rows_by_rank=[c["launch_rows"] for c in cap],
+                launches_by_rank=[c["launches"] for c in cap],
+                recursion_replays_by_rank=[c["rollout_replays"]
+                                           for c in cap],
+                thinning_replays_by_rank=[c["thin_replays"] for c in cap])
+            check(m_eager <= 1e-12 and m_one <= 1e-10,
+                  f"{what} {name} moments: {rep[name]}")
+    c4 = [r["7e_C4x8_fp64"][0] for r in ranks]
+    one = max(_moments_diff(c4[0]["moments"], c4[0]["moments_one_launch"]))
+    rep["C4x8_fp64"]["moments_vs_one_80_row_launch"] = one
+    check(rep["C4x8_fp64"]["rollout_calls_by_rank"]
+          == [[(20, 20 * i)] for i in range(4)]
+          and rep["C4x8_fp64"]["launch_rows_by_rank"]
+          == ([[20]] * 4 if on_card else [[]] * 4) and one <= 1e-12,
+          f"{what} C4 moments: {rep['C4x8_fp64']}")
+    c5 = rep["C5x4_thin_fp64"]
+    cfg5 = FFVDConfig(dataset="ballbeam", case=5)
+    sub_steps = cfg5.num_posterior_samples * cfg5.posterior_sample_spacing
+    check(c5["rollout_calls_by_rank"] == [[(10, 10 * i)] for i in range(4)]
+          and c5["thinning_replays_by_rank"]
+          == [sub_steps - WARMUP if on_card else None] * 4,
+          f"{what} C5 thinning: {c5}")
+    deep = rep["deep_C4x4_fp64"]
+    check(deep["launches_by_rank"] == [0] * 4
+          and deep["recursion_replays_by_rank"]
+          == [T - WARMUP if on_card else None] * 4,
+          f"{what} deep recursion: {deep}")
+    timed = lambda key: [r[key][0]["timed"]["ms_per_iter"] for r in ranks]
+    rep["C4x8_fp32"] = {
+        "ms_per_iter_captured_by_rank": timed("7e_C4x8_fp32_timed"),
+        "ms_per_iter_eager_by_rank": timed("7e_C4x8_fp32_timed_eager"),
+        "one_process_8_chains_captured_ms_per_iter":
+            singles["C4x8_fp32_timed"]["timed"]["ms_per_iter"],
+        "iterations": specs["C4x8_fp32_timed"]["timed"]}
+    return rep
+
+
+def _nccl_plan(plan_b, plan_c):
+    """7d's jobs: 7b's and 7c's eagerly (``capture=False``), then the
+    fp64 and timed ones again captured (``capture=True``: the all-reduces
+    over 'ep' or 'sp' inside the graph)."""
+    eager = [(n, k, dict(s, capture=False)) for n, k, s in plan_b + plan_c]
+    captured = [(f"{n}_captured", k, dict(s, capture=True, sync_check=2))
+                for n, k, s in plan_b[:3] + plan_c]
+    return eager + captured
+
+
+def phase_mesh_cards(torch, card, singles, plan_b, plan_c):
+    """7d: 7b and 7c over NCCL, one rank a card on 4 cards, eagerly and
+    captured: the captured runs against the eager ones within rtol 1e-12,
+    one replay an iteration, none syncing; both rates beside one card's
+    captured rate (``singles``, this process on cuda:0)."""
+    from ffvd_tpu_torch.parallel.distributed import spawn_local
+    from ffvd_tpu_torch.parallel.rank_jobs import jobs_in_turn
+    from ffvd_tpu_torch.utils.graphs import WARMUP
+    t0 = time.time()
+    ranks = spawn_local(jobs_in_turn, 4, "nccl", "cuda",
+                        args=(_nccl_plan(plan_b, plan_c),), timeout=240)
+    rep = {"ran": True, "cards": torch.cuda.device_count(),
+           "backend": "nccl", "seconds": time.time() - t0}
+    for key, check_fn in (("7b", _check_dp_ep), ("7c", _check_sp)):
+        rep[key] = check_fn(torch, ranks, singles, f"7d {key}")
+    rep["captured"] = {}
+    for name, _, spec in plan_b[:3] + plan_c:
+        cap = [r[f"{name}_captured"][0] for r in ranks]
+        eag = [r[name][0] for r in ranks]
+        d = [_diff(torch, c, e, 1e-12, 0.0) for c, e in zip(cap, eag)]
+        entry = {"captured_vs_eager_max_rel_diff": max(x[0] for x in d),
+                 "bit_equal": all(x[2] for x in d),
+                 "vs_one_card_max_rel_diff": max(
+                     _diff(torch, c, singles[name], 1e-10, 1e-12)[0]
+                     for c in cap),
+                 "replays_by_rank": [c["replays"] for c in cap],
+                 "replays_after_sync_check_by_rank": [
+                     c.get("replays_after_sync_check") for c in cap],
+                 "step_collectives": cap[0]["step_collectives"]}
+        ok = max(x[0] for x in d) <= 1e-12 and all(
+            c["replays"] is not None
+            and c.get("replays_after_sync_check") == c["replays"] + 2
+            for c in cap)
+        if spec.get("timed"):
+            entry.update(
+                ms_per_iter_captured_by_rank=[c["timed"]["ms_per_iter"]
+                                              for c in cap],
+                ms_per_iter_eager_by_rank=[e["timed"]["ms_per_iter"]
+                                           for e in eag],
+                one_card_captured_ms_per_iter=singles[name]["timed"]
+                ["ms_per_iter"])
+        else:
+            ok = ok and all(c["replays"] == spec["iters"] - WARMUP
+                            for c in cap)
+        rep["captured"][name] = entry
+        check(ok, f"7d {name}: captured over NCCL: {entry}")
+    emit("7d", card=card, **rep)
+    return rep
+
+
+def _one_process_runs(torch, dev, plan_b, plan_c, specs_e=None):
+    """The one-process twins of 7b's, 7c's and (``specs_e``) 7e's jobs, in
+    this process on ``dev`` (captured by default on the card)."""
+    from ffvd_tpu_torch.parallel.rank_jobs import chains_job, jobs_in_turn
+    out = {name: jobs_in_turn(dev, [(name, kind, dict(
+        spec, mesh=None, refuse=False, sync_check=None))])[name][0]
+        for name, kind, spec in plan_b[:3] + plan_c}
+    for name in ("C5x4_thin_fp64", "C6x4_fp64",
+                 "deep_C4x4_fp64") if specs_e else ():
+        out[name] = chains_job(dev, dict(specs_e[name], mesh=None,
+                                         sync_check=None))
+    return out
+
+
 def phase_mesh(torch, card, device="cuda:0"):
     """Phase 7: the mesh half of ``parallel/``, through
     ``parallel.distributed.spawn_local`` and the jobs of
@@ -2518,77 +2738,108 @@ def phase_mesh(torch, card, device="cuda:0"):
     against the same job in this process on the card.
 
     7a: NCCL at world size 1 on cuda:0, mesh (1, 1): 8 ballbeam C4 chains,
-    50 fp32 iterations, then ``multichain_moments``: bit-equal to the run
+    50 fp32 iterations, then ``multichain_moments``, captured (a world of
+    one issues no collective) and eagerly: both bit-equal to the run
     without a mesh.  7b: gloo, 4 ranks sharing cuda:0 (NCCL refuses two
     ranks on one card), dp=2 × ep=2: 8 C4 chains fp64 for 20 iterations and
     4 C5 chains fp64 for 3, each within rtol 1e-10 of the one-process run;
     the C4 chains' moments from 2 launches of 40 rows (one a dp group,
     Philox rows offset), equal to one 80-row launch on the same state
-    within rtol 1e-12; 8 C4 chains fp32, 200 iterations timed (ms an
+    within rtol 1e-12; the capture rule: the default ran the step eagerly
+    (it all-reduces over 'ep' on gloo) and ``capture=True`` raised, naming
+    both; 8 C4 chains fp32, 200 iterations timed (ms an
     iteration, the collectives' share of the host time) beside one
     process's 8 chains timed alike; six datasets ×
     M=512 for 20 iterations and ``evaluate()`` (6 launches, global plan).
     7c: gloo, 4 ranks sharing cuda:0, sp=4: kink N=5000 C4 full batch,
     fp64 for 10 iterations within rtol 1e-10 of the one-process
-    ``Trainer``; fp32 timed beside the one-process rate.  7d: 7b and 7c
-    over NCCL on 4 cards when the machine has them.  8a and 8b
+    ``Trainer``; fp32 timed beside the one-process rate.  7e
+    (``_check_dp_only``): gloo, the same 4 ranks, dp=4 × ep=1, each rank's
+    step captured.  7d (``phase_mesh_cards``): 7b and 7c over NCCL on 4
+    cards, eager and captured, when the machine has them.  8a and 8b
     (``_check_8``) run in 7b's gloo ranks.  Timings of ranks that
     share one card measure correctness and overhead, not scaling.
     ``device="cpu"`` rehearses it on the host (gloo throughout, no 7d)."""
     from ffvd_tpu_torch.parallel.distributed import spawn_local
     from ffvd_tpu_torch.parallel.rank_jobs import chains_job, jobs_in_turn
+    from ffvd_tpu_torch.utils.graphs import WARMUP
     dev = torch.device(device)
+    on_card = dev.type == "cuda"
     out = {}
     # 7a
-    spec = _chain_spec("ballbeam", 8, 4, "float32", 50,
+    spec = _chain_spec("ballbeam", 8, 4, "float32", 50, mesh=(1, 1),
                        moments=dict(test_len=500, seed=1))
     t0 = time.time()
-    (ranked,) = spawn_local(chains_job, 1,
-                            "nccl" if dev.type == "cuda" else "gloo", device,
-                            args=(dict(spec, mesh=(1, 1)),), timeout=300)
+    (ranked,) = spawn_local(
+        jobs_in_turn, 1, "nccl" if on_card else "gloo", device,
+        args=([("captured", "chains", spec),
+               ("eager", "chains", dict(spec, capture=False))],),
+        timeout=300)
     a_s = time.time() - t0
-    one = chains_job(dev, spec)
-    rel, _, equal = _diff(torch, ranked, one, 0.0, 0.0)
-    m_rel = _moments_diff(ranked["moments"], one["moments"])
-    out["7a"] = {"backend": "nccl" if dev.type == "cuda" else "gloo",
+    cap, eager = ranked["captured"][0], ranked["eager"][0]
+    one = chains_job(dev, dict(spec, mesh=None))
+    rel, _, equal = _diff(torch, cap, one, 0.0, 0.0)
+    rel_e, _, equal_e = _diff(torch, cap, eager, 0.0, 0.0)
+    m_rel = _moments_diff(cap["moments"], one["moments"])
+    m_rel_e = _moments_diff(cap["moments"], eager["moments"])
+    out["7a"] = {"backend": "nccl" if on_card else "gloo",
                  "world_size": 1, "mesh": [1, 1],
                  "chains": 8, "iterations": 50, "precision": "fp32",
                  "bit_equal": equal, "max_rel_diff": rel,
                  "moments_max_rel_diff": m_rel,
-                 "launches": ranked["launches"],
-                 "launch_rows": ranked["launch_rows"], "seconds": a_s}
+                 "captured_bit_equal_eager": equal_e,
+                 "captured_vs_eager_max_rel_diff": rel_e,
+                 "moments_captured_vs_eager": m_rel_e,
+                 "replays": cap["replays"],
+                 "eager_replays": eager["replays"],
+                 "step_collectives": cap["step_collectives"],
+                 "launches": cap["launches"],
+                 "launch_rows": cap["launch_rows"], "seconds": a_s}
     emit("mesh_7a", **out["7a"])
-    card_launches = 1 if dev.type == "cuda" else 0   # plain on the host
-    check(equal and max(m_rel) == 0.0
-          and ranked["rollout_calls"] == [(80, 0)]
-          and ranked["launches"] == card_launches,
-          f"7a: mesh (1, 1) differs from one process: {out['7a']}")
+    card_launches = 1 if on_card else 0   # plain on the host
+    check(equal and equal_e and max(m_rel) == 0.0 and max(m_rel_e) == 0.0
+          and cap["rollout_calls"] == [(80, 0)]
+          and cap["launches"] == card_launches
+          and cap["replays"] == (50 - WARMUP if on_card else None)
+          and eager["replays"] is None,
+          f"7a: mesh (1, 1) differs from one process or eager: {out['7a']}")
     plan_b, plan_c = _mesh_plans()
-    singles = {name: jobs_in_turn(dev, [(name, kind, dict(spec, mesh=None))]
-                                  )[name][0]
-               for name, kind, spec in plan_b[:3] + plan_c}
-    # 7b, 7c, 8a, 8b: gloo ranks sharing the card, in one set of processes
+    plan_e, specs_e = _dp_only_plan()
+    singles = _one_process_runs(torch, dev, plan_b, plan_c, specs_e)
+    # 7b, 7c, 8a, 8b, 7e: gloo ranks sharing the card, in one set of
+    # processes; 7b's C4 chains also try capture=True
     plan_8, ck, kink = _plan_8()
+    gloo_b = [(n, k, dict(s, refuse=True) if n == "C4x8_fp64" else s)
+              for n, k, s in plan_b]
     t0 = time.time()
     ranks = spawn_local(jobs_in_turn, 4, "gloo", device,
-                        args=(plan_b + plan_c + plan_8,), timeout=600)
+                        args=(gloo_b + plan_c + plan_8 + plan_e,),
+                        timeout=900)
     bc_s = time.time() - t0
     for key, check_fn in (("7b", _check_dp_ep), ("7c", _check_sp)):
         out[key] = {"backend": "gloo", "ranks": 4, "cards": 1,
-                    "seconds_7b_7c_8a_8b": bc_s,
-                    **check_fn(torch, ranks, singles, key,
-                               dev.type == "cuda")}
+                    "seconds_7b_7c_8a_8b_7e": bc_s,
+                    **check_fn(torch, ranks, singles, key, on_card)}
+        if key == "7b":
+            c4 = [r["C4x8_fp64"][0] for r in ranks]
+            out[key]["capture_rule"] = rule = {
+                "replays_by_rank": [x["replays"] for x in c4],
+                "step_collectives": c4[0]["step_collectives"],
+                "capture_true_raised": c4[0]["refusal"]}
+            check(all(x["replays"] is None
+                      and x["step_collectives"] == (("ep", "gloo"),)
+                      and "'ep' on gloo" in (x["refusal"] or "")
+                      for x in c4), f"7b: the capture rule: {rule}")
         emit(f"mesh_{key}", card=card, **out[key])
     _check_8(torch, ranks, ck, kink, card, dev)
+    out["7e"] = {"backend": "gloo", "ranks": 4, "cards": 1, "mesh": [4, 1],
+                 **_check_dp_only(torch, ranks, singles, specs_e, "7e",
+                                  on_card)}
+    emit("mesh_dp_only_7e", card=card, **out["7e"])
     # 7d: NCCL over 4 cards
-    n = torch.cuda.device_count() if dev.type == "cuda" else 0
+    n = torch.cuda.device_count() if on_card else 0
     if n >= 4:
-        out["7d"] = {"ran": True, "cards": n}
-        ranks = spawn_local(jobs_in_turn, 4, "nccl", "cuda",
-                            args=(plan_b + plan_c,), timeout=600)
-        for key, check_fn in (("7b", _check_dp_ep), ("7c", _check_sp)):
-            out["7d"][key] = check_fn(torch, ranks, singles, f"7d {key}")
-        emit("7d", **out["7d"])
+        out["7d"] = phase_mesh_cards(torch, card, singles, plan_b, plan_c)
     else:
         out["7d"] = {"ran": False, "cards": n}
         emit("7d", **out["7d"])
@@ -2597,7 +2848,22 @@ def phase_mesh(torch, card, device="cuda:0"):
         "mesh_gloo_dp2ep2_C4x8": sum(out["7b"]["moments"]
                                      ["launches_by_rank"]),
         "mesh_gloo_dp2ep2_six_m512": sum(out["7b"]["six_m512"]
-                                         ["launches_by_rank"])}}
+                                         ["launches_by_rank"]),
+        "mesh_gloo_dp4_C4x8_captured": sum(out["7e"]["C4x8_fp64"]
+                                           ["launches_by_rank"]),
+        "mesh_gloo_dp4_C5x4_captured": sum(out["7e"]["C5x4_thin_fp64"]
+                                           ["launches_by_rank"])}}
+
+
+def phase_nccl_cards_only(torch, card):
+    """``--nccl-cards``: phase 7d alone, for a machine with 4 cards (its
+    one-card twins on cuda:0 first)."""
+    plan_b, plan_c = _mesh_plans()
+    n = torch.cuda.device_count()
+    check(n >= 4, f"--nccl-cards needs 4 cards, found {n}")
+    singles = _one_process_runs(torch, torch.device("cuda:0"), plan_b,
+                                plan_c)
+    return phase_mesh_cards(torch, card, singles, plan_b, plan_c)
 
 
 # ---------------------------------------------------------------------------
@@ -3116,6 +3382,13 @@ def main() -> int:
     card = card_line(torch)
     t0 = time.time()
     logs = cuda_build.build(["rollout"])
+    if "--nccl-cards" in sys.argv[1:]:
+        phase_nccl_cards_only(torch, card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     build_s = time.time() - t0
     print(logs["rollout"], file=sys.stderr)
     emit("device_build", card=card, torch=torch.__version__,

@@ -5,8 +5,9 @@ Usage:  python -m ffvd_tpu_torch.cli --file_index 5 --case_val 4
 
 The flags are the JAX CLI's.  ``--platform`` is ``gpu`` (the default; fails
 without a CUDA device) or ``cpu``; ``--precision`` defaults to fp32 on the
-card and fp64 on the CPU.  Flags that select a path the port has not reached
-yet stop with an error that names the ROADMAP item.
+card and fp64 on the CPU.  ``--prng_impl rbg`` selects a JAX PRNG, which
+does not apply to the port (its draws come from ``torch.Generator``s): it
+stops with an error that says so.
 """
 
 from __future__ import annotations
@@ -108,11 +109,13 @@ def _log_clip_kwargs(value, lower=None):
     return kw
 
 
-def _not_ported(args):
-    """The flags whose paths are not ported yet, with their ROADMAP item."""
+def _not_applicable(args):
+    """The flags that select a JAX-only path, which the port does not
+    have."""
     out = []
     if args.prng_impl != "threefry2x32":
-        out.append("--prng_impl rbg (a JAX PRNG; not applicable)")
+        out.append("--prng_impl rbg (a JAX PRNG; the port draws from "
+                   "torch.Generator)")
     return out
 
 
@@ -128,9 +131,10 @@ def _results_path(args, dataset, cfg):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    missing = _not_ported(args)
-    if missing:
-        raise SystemExit("not ported yet (ROADMAP): " + "; ".join(missing))
+    jax_only = _not_applicable(args)
+    if jax_only:
+        raise SystemExit("does not apply to the PyTorch port: "
+                         + "; ".join(jax_only))
 
     import torch
 

@@ -126,8 +126,9 @@ def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
     tensor per hidden layer, ``thin_posterior``'s) its inter-layer normals
     of the rollout and of the thinning.  ``capture``, as in
     ``Trainer.run``: by default on the card the thinning and the recursion
-    replay their captured steps; never on the CPU or under a mesh, where
-    True raises.
+    replay their captured steps, on a 'dp'-only mesh too; never on the
+    CPU, and eagerly where the trainer's step all-reduces
+    (``inference.trainer.capture_rule``, which says when True raises).
 
     The emission moments use each chain's params after thinning, as JAX's
     do: the rollouts came from the moved chain.
@@ -139,7 +140,9 @@ def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
     rows are those of one launch of all C×S; the rollouts are then summed
     into every process, which returns every chain's moments and its own
     share of the thinned state.  The seed is drawn on every process.  A
-    recursion's rows are cut the same way and run eagerly."""
+    recursion's rows are cut the same way, and each process that rolls
+    out replays its own captured step.  The sums over WORLD and the
+    emission's gather run after the graphs, eagerly."""
     from ffvd_tpu_torch.eval.rollout import (posterior_inputs,
                                              recursion_rollout,
                                              rollout_controls, thin_posterior)

@@ -452,7 +452,8 @@ def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
     (one (num, test_len, D) tensor per hidden layer), when given, replace
     that noise.  ``capture``, as in ``Trainer.run``: by default on the card
     the thinning replays its captured sub-step and the recursion its
-    captured step; never on the CPU or under a mesh, where True raises.
+    captured step; never on the CPU, nor where the trainer's step
+    all-reduces over a gloo group (``inference.trainer.capture_rule``).
     Returns (predict_x (S, T, D), predict_x_var (S, T, D), the state with
     the moved chain)."""
     cfg = trainer.cfg

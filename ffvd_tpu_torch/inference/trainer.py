@@ -169,6 +169,40 @@ class SubsetOps:
         return GPSSMParams.from_leaves({**into.leaves(), **sub})
 
 
+def capture_rule(capture: Optional[bool], on_card: bool,
+                 collectives: Iterable[Tuple[str, str]] = ()) -> bool:
+    """Whether a step replays a CUDA graph (``utils/graphs.py``).
+
+    ``collectives``: (mesh axis, backend) of every group whose all-reduces
+    the step issues.  A CUDA graph captures NCCL's all-reduces (their
+    kernels run on the card) and not gloo's (a host round trip).  So a
+    step may be captured when it issues no collective (one process, a
+    'dp'-only mesh, a world of one) or when every collective runs on NCCL.
+
+    ``capture`` None: captured on the card when the step issues no
+    collective, else eager (over NCCL too: a graph holding NCCL's
+    all-reduces must be freed before its groups are destroyed, which the
+    caller has to do; ``utils/graphs.py``).  True: captured, or a
+    ``ValueError`` that names the backend and the axis, or the CPU.
+    False: eager."""
+    collectives = tuple(collectives)
+    if capture is None:
+        return on_card and not collectives
+    if not capture:
+        return False
+    held = [(axis, b) for axis, b in collectives if b != "nccl"]
+    if held:
+        raise ValueError(
+            "capture=True: the step all-reduces over "
+            + ", ".join(f"'{axis}' on {b}" for axis, b in held)
+            + ", which a CUDA graph cannot capture (it captures NCCL's); "
+            "run it eagerly (capture=None or False) or on an NCCL group")
+    if not on_card:
+        raise ValueError("capture=True needs the state on a CUDA device; "
+                         "the CPU runs the step eagerly")
+    return True
+
+
 @dataclasses.dataclass
 class TrainState:
     params: GPSSMParams
@@ -231,6 +265,11 @@ class Trainer:
     lead: Tuple[int, ...] = ()
     # The mesh of a run split over processes (parallel/), None in one.
     mesh = None
+    # (mesh axis, backend) of each process group of more than one process
+    # whose collectives run inside ``outer_step``: none in one process or
+    # over 'dp' alone, whose trace is gathered after a chunk.  The mesh
+    # trainers read it from their groups once, when they are built.
+    step_collectives: Tuple[Tuple[str, str], ...] = ()
 
     def __init__(self, cfg: FFVDConfig, data: SSMData,
                  pg_fn: Optional[Callable] = None):
@@ -571,9 +610,10 @@ class Trainer:
         ``capture``: replay one captured iteration from a CUDA graph
         (``utils/graphs.py``, the counterpart of JAX's jitted scan), with
         one host read a chunk, for the NaN check.  None (the default)
-        captures on the card and runs eagerly on the CPU and under a mesh;
-        True raises where it cannot capture; False runs ``outer_step``
-        eagerly.  Both give the same numbers."""
+        captures on the card when the step issues no collective (one
+        process or a 'dp'-only mesh; ``capture_rule``) and runs eagerly
+        otherwise and on the CPU; True raises where it cannot capture;
+        False runs ``outer_step`` eagerly.  Both give the same numbers."""
         capture = self.capture_mode(state, capture)
         draws = iter(draws) if draws is not None else None
         traces = []
@@ -581,7 +621,7 @@ class Trainer:
         while done < num_iterations:
             n = min(chunk_size, num_iterations - done)
             if capture:
-                nlls = self._replay(state, generator, draws, n)
+                nlls = self._replay(state, generator, draws, n, True)
             else:
                 nlls = torch.stack([
                     self.outer_step(state, generator,
@@ -602,28 +642,20 @@ class Trainer:
     def capture_mode(self, state: TrainState, capture: Optional[bool]
                      ) -> bool:
         """Whether ``run``, ``eval.rollout.thin_posterior`` and the
-        rollout recursion replay a CUDA graph: by default on the card,
-        never on the CPU or under a mesh (gloo collectives cannot be
-        captured; they run eagerly there)."""
-        on_card = state.params.x.device.type == "cuda"
-        if capture is None:
-            return on_card and self.mesh is None
-        if capture and self.mesh is not None:
-            raise ValueError("capture=True under a mesh: its collectives are "
-                             "not captured, so a meshed trainer runs "
-                             "eagerly (capture=None or False)")
-        if capture and not on_card:
-            raise ValueError("capture=True needs the state on a CUDA device; "
-                             "the CPU runs the step eagerly")
-        return bool(capture)
+        rollout recursion replay a CUDA graph (``capture_rule`` on the
+        collectives of this trainer's step)."""
+        return capture_rule(capture, state.params.x.device.type == "cuda",
+                            self.step_collectives)
 
-    def _replay(self, state: TrainState, generator, draws, n: int
-                ) -> torch.Tensor:
+    def _replay(self, state: TrainState, generator, draws, n: int,
+                capture: Optional[bool] = None) -> torch.Tensor:
         """n iterations of the captured step: each copies its injected
         draws into the graph's static inputs and replays it.  One graph a
-        trainer, captured again when the state, the generator or the
-        draws' shapes change."""
+        trainer, captured again when the state, the generator, the draws'
+        shapes or ``capture`` (``capture_mode``'s; False: the same step
+        run plainly) change."""
         from ffvd_tpu_torch.utils import graphs   # utils/ imports this module
+        capture = self.capture_mode(state, capture)
         dev = state.params.x.device
         g = getattr(self, "_graph", None)
         fp = graphs.train_fingerprint(self, state, generator)
@@ -631,10 +663,12 @@ class Trainer:
         for _ in range(n):
             d = graphs.to_device(next(draws) if draws is not None else {},
                                  dev, self._whole_lead() or (1,))
-            if g is None or g.fp != fp or g.sig != graphs.signature(d):
+            if g is None or g.fp != fp or g.sig != graphs.signature(d) \
+                    or g.graph.capture != capture:
                 if g is not None:
                     parts.append(g.flush())
-                g = self._graph = graphs.TrainGraph(self, state, generator, d)
+                g = self._graph = graphs.TrainGraph(self, state, generator, d,
+                                                    capture)
             parts.append(g.step(d))
             fp = g.fp       # a warm-up may have given Adam its moments
         parts.append(g.flush())

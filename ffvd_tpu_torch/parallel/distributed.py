@@ -28,6 +28,7 @@ instead of leaving the others waiting in a collective.
 from __future__ import annotations
 
 import datetime
+import gc
 import os
 import shutil
 import tempfile
@@ -230,6 +231,10 @@ def _rank_main(rank, fn, world_size, backend, device, init_file, out_dir,
     _init_group(_backend_for(dev, backend), dev, f"file://{init_file}",
                 world_size, rank, GROUP_TIMEOUT)
     out = fn(dev, *args)
+    # A CUDA graph that captured NCCL all-reduces holds its communicators'
+    # resources until it is freed, and the trainers' graphs sit in
+    # reference cycles: free them before the groups are destroyed.
+    gc.collect()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))

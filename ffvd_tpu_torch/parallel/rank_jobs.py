@@ -13,11 +13,17 @@ A spec holds numpy or torch values only: ``cfg`` (FFVDConfig keywords),
 ``dtype`` ("float32"/"float64"), the data (``y``, ``control`` and for
 datasets ``mask``), the whole stacked ``leaves`` (path → (C, ...)), the
 iteration count ``iters``, the training generator's ``seed``, optional
-``draws`` (one dict of whole ``outer_step`` keywords per iteration).
+``draws`` (one dict of whole ``outer_step`` keywords per iteration) and
+``capture``: ``Trainer.run``'s argument (None, True, False) for training
+and evaluation, or "body", the captured step's body run through
+``Trainer._replay`` (on the CPU, plainly: the CPU's view of what the card
+replays).  ``sync_check`` (replays) and ``refuse`` ask for the checks of
+a captured run (``_capture_checks``).
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from typing import Dict, Optional
 
@@ -84,24 +90,75 @@ def _state_dict(state) -> Dict[str, torch.Tensor]:
     return _cpu(out)
 
 
-def _timed_iters(trainer, state, n: int, gen, dev) -> dict:
+def _run_capture(spec) -> Optional[bool]:
+    """``spec["capture"]`` for the runs after training: "body" takes the
+    default."""
+    capture = spec.get("capture")
+    return None if capture == "body" else capture
+
+
+def _train(trainer, state, spec, gen, draws):
+    """``spec["iters"]`` iterations of ``trainer`` as ``spec["capture"]``
+    says (the module docstring).  Returns (state, the whole trace)."""
+    capture = spec.get("capture")
+    if capture == "body":
+        it = iter(draws) if draws is not None else None
+        return state, trainer._gather_trace(
+            trainer._replay(state, gen, it, spec["iters"]))
+    return trainer.run(state, spec["iters"], generator=gen, draws=draws,
+                       chunk_size=spec.get("chunk", 500), capture=capture)
+
+
+def _capture_checks(trainer, state, spec, gen, dev) -> dict:
+    """After a run: the replays of the trainer's graph (None: it ran
+    eagerly or plainly) and the collectives its step issues; with
+    ``spec["sync_check"]`` (k), k more replays with the card's sync debug
+    mode at "error" (any host synchronisation inside raises) and the
+    replays after them; with ``spec["refuse"]``, the message of
+    ``run(capture=True)``'s ``ValueError`` (None if it ran)."""
+    graph = getattr(trainer, "_graph", None)
+    if graph is not None and not graph.graph.captured:
+        graph = None
+    out = {"replays": None if graph is None else graph.graph.replays,
+           "step_collectives": trainer.step_collectives}
+    k = spec.get("sync_check")
+    if k and graph is not None and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            trainer._replay(state, gen, None, k, True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize(dev)
+        out["replays_after_sync_check"] = trainer._graph.graph.replays
+    if spec.get("refuse"):
+        try:
+            trainer.run(state, 1, generator=gen, capture=True)
+            out["refusal"] = None
+        except ValueError as exc:
+            out["refusal"] = str(exc)
+    return out
+
+
+def _timed_iters(trainer, state, n: int, gen, dev, capture=None) -> dict:
     """ms per iteration over ``n`` iterations, and the share of the wall
     time this process spent inside the collectives: ``torch.profiler``'s
     host time of ``distributed.COLLECTIVE_LABEL`` over n/10 more (the
     whole all-reduce under gloo, which waits for it; the enqueue only
-    under NCCL)."""
+    under NCCL; inside a replayed graph none is seen).  ``capture`` as in
+    ``Trainer.run``."""
     from ffvd_tpu_torch.parallel.distributed import COLLECTIVE_LABEL
     from ffvd_tpu_torch.utils.timing import hard_sync
     hard_sync(dev)
     t0 = time.perf_counter()
-    trainer.run(state, n, generator=gen)
+    trainer.run(state, n, generator=gen, capture=capture)
     hard_sync(dev)
     wall = time.perf_counter() - t0
     m = max(n // 10, 2)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         p0 = time.perf_counter()
-        trainer.run(state, m, generator=gen)
+        trainer.run(state, m, generator=gen, capture=capture)
         hard_sync(dev)
         p_wall = time.perf_counter() - p0
     coll = [e for e in prof.key_averages() if e.key == COLLECTIVE_LABEL]
@@ -162,10 +219,12 @@ def _sequence_trainer(dev, spec, mesh):
 
 def chains_job(dev, spec) -> dict:
     """``MultiChainTrainer`` over the whole ``leaves``: ``iters``
-    iterations, then (``spec["moments"]``: test_len, seed) the chains'
-    ``multichain_moments``.  Returns the whole trace and state, the
-    moments, this process's rollout launches and, with ``spec["timed"]``
-    (iterations), ``_timed_iters``'s numbers."""
+    iterations, then (``spec["moments"]``: test_len, seed, optionally its
+    own ``capture``) the chains' ``multichain_moments``.  Returns the
+    whole trace and state, the moments, this process's rollout launches
+    and the recursion's and thinning's replays, with ``spec["timed"]``
+    (iterations)
+    ``_timed_iters``'s numbers, and ``_capture_checks``'."""
     from ffvd_tpu_torch.eval.ensemble import multichain_moments
     from ffvd_tpu_torch.ops import rollout as ro
     from ffvd_tpu_torch.parallel.sharding import (MultiChainTrainer,
@@ -177,11 +236,11 @@ def chains_job(dev, spec) -> dict:
     state = mct.init_state(params)
     gen = _generator(dev, spec.get("seed", 0))
     draws = _to(spec.get("draws"), dev, dtype)
-    state, trace = mct.run(state, spec["iters"], generator=gen, draws=draws,
-                           chunk_size=spec.get("chunk", 500))
+    state, trace = _train(mct, state, spec, gen, draws)
     out = {"trace": _cpu(trace)}
     whole = state if mesh is None else gather_chain_state(state, mesh)
     out["state"] = _state_dict(whole)
+    capture = _run_capture(spec)
     if spec.get("moments"):
         mo = spec["moments"]
         ro.rollout.log.clear()
@@ -198,13 +257,19 @@ def chains_job(dev, spec) -> dict:
                 mct, state, mo["test_len"],
                 generator=_generator(dev, mo["seed"]),
                 thin_generator=_generator(dev, mo["seed"] + 1),
-                noise=_to(mo.get("noise"), dev, dtype))
+                noise=_to(mo.get("noise"), dev, dtype),
+                capture=mo.get("capture", capture))
         finally:
             ro.rollout_batched = batched
         out["moments"] = chains
         out["rollout_calls"] = calls
         out["launches"] = ro.rollout.launches
         out["launch_rows"] = [rows for rows, _ in ro.rollout.log]
+        for key, attr in (("rollout_replays", "_rollout_graph"),
+                          ("thin_replays", "_thin_graph")):
+            g = getattr(mct, attr, None)
+            out[key] = (None if g is None or not g.graph.captured
+                        else g.graph.replays)
         if mo.get("check_whole") and mesh is not None:
             # The same moments of the gathered state in one launch of all
             # C×S rows (a comparison, after the counts were read).
@@ -215,7 +280,9 @@ def chains_job(dev, spec) -> dict:
                 thin_generator=_generator(dev, mo["seed"] + 1),
                 noise=_to(mo.get("noise"), dev, dtype))
     if spec.get("timed"):
-        out["timed"] = _timed_iters(mct, state, spec["timed"], gen, dev)
+        out["timed"] = _timed_iters(mct, state, spec["timed"], gen, dev,
+                                    capture)
+    out.update(_capture_checks(mct, state, spec, gen, dev))
     return out
 
 
@@ -232,11 +299,12 @@ def datasets_job(dev, spec) -> dict:
     state = mdt.init_state(params)
     gen = _generator(dev, spec.get("seed", 0))
     t0 = time.perf_counter()
-    state, trace = mdt.run(state, spec["iters"], generator=gen)
+    state, trace = _train(mdt, state, spec, gen, None)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     train_s = time.perf_counter() - t0
-    out = {"trace": _cpu(trace), "train_s": train_s}
+    out = {"trace": _cpu(trace), "train_s": train_s,
+           **_capture_checks(mdt, state, spec, gen, dev)}
     whole = state if mesh is None else gather_chain_state(state, mesh)
     out["state"] = _state_dict(whole)
     if spec.get("eval_seed") is not None:
@@ -261,12 +329,13 @@ def sequence_job(dev, spec) -> dict:
     tr, params = _sequence_trainer(dev, spec, _mesh(spec))
     state = tr.init_state(params)
     gen = _generator(dev, spec.get("seed", 0))
-    state, trace = tr.run(state, spec["iters"], generator=gen,
-                          draws=_to(spec.get("draws"), dev, dtype),
-                          chunk_size=spec.get("chunk", 500))
+    state, trace = _train(tr, state, spec, gen,
+                          _to(spec.get("draws"), dev, dtype))
     out = {"trace": _cpu(trace), "state": _state_dict(state)}
     if spec.get("timed"):
-        out["timed"] = _timed_iters(tr, state, spec["timed"], gen, dev)
+        out["timed"] = _timed_iters(tr, state, spec["timed"], gen, dev,
+                                    _run_capture(spec))
+    out.update(_capture_checks(tr, state, spec, gen, dev))
     return out
 
 
@@ -395,12 +464,13 @@ def checkpoint_job(dev, spec) -> dict:
 def raise_job(dev, spec) -> Optional[str]:
     """The job ``spec["job"]`` (default "chains") of ``JOBS``, expected to
     raise on every process: a chain that starts non-finite
-    (``FloatingPointError``), or ranks whose generators differ at a
-    checkpoint (``RuntimeError``).  Returns the message (None if nothing
-    was raised)."""
+    (``FloatingPointError``), ranks whose generators differ at a
+    checkpoint (``RuntimeError``), or a capture that the mesh's backend
+    refuses (``ValueError``).  Returns the message (None if nothing was
+    raised)."""
     try:
         JOBS[spec.get("job", "chains")](dev, spec)
-    except (FloatingPointError, RuntimeError) as exc:
+    except (FloatingPointError, RuntimeError, ValueError) as exc:
         return str(exc)
     return None
 
@@ -421,4 +491,7 @@ def jobs_in_turn(dev, plan) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         out[name] = (res, time.perf_counter() - t0)
+        # Progress on stderr: where a set of ranks stops, if it does.
+        print(f"rank_jobs {dev}: {name} done in {out[name][1]:.1f} s",
+              file=sys.stderr, flush=True)
     return out

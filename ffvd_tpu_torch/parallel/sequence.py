@@ -82,6 +82,8 @@ class RowShareTrainer(Trainer):
         self.rows, _ = shard_sequence(data, mesh)
         self.group = axis_group(mesh, "sp")
         self.width = axis_size(mesh, "sp")
+        if self.group is not None:
+            self.step_collectives = (("sp", dist.get_backend(self.group)),)
         part = dict(rows=self.rows,
                     reduce=functools.partial(diff_sum, group=self.group))
         self.nll_fn = functools.partial(self.nll_fn, **part)
@@ -110,10 +112,13 @@ class SequenceShardedTrainer:
 
     def run(self, state: TrainState, data: SSMData, num_iterations: int,
             chunk_size: int = 500, nan_check: bool = True,
-            generator: Optional[torch.Generator] = None, draws=None):
+            generator: Optional[torch.Generator] = None, draws=None,
+            capture: Optional[bool] = None):
         """``Trainer.run`` on ``data`` (of the trainer's shapes), every
         process holding the whole ``state``.  Returns (state, nll_trace),
-        the same on every process."""
+        the same on every process.  ``capture`` as in ``Trainer.run``: the
+        step all-reduces over 'sp', so it is captured only on NCCL
+        (``inference.trainer.capture_rule``)."""
         if data.y.shape != self.trainer.data.y.shape:
             raise ValueError(f"data of {tuple(data.y.shape)} rows, the "
                              "trainer's of "
@@ -121,4 +126,4 @@ class SequenceShardedTrainer:
         self.trainer.data = data
         return self.trainer.run(state, num_iterations, chunk_size=chunk_size,
                                 nan_check=nan_check, generator=generator,
-                                draws=draws)
+                                draws=draws, capture=capture)

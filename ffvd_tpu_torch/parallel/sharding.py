@@ -469,6 +469,9 @@ class MeshBatchedTrainer(BatchedTrainer):
         self.n_whole = n
         self.ep_group = axis_group(mesh, "ep")
         if self.ep_group is not None:
+            # The step sums gradients and the nll over 'ep' (and C6
+            # gathers the dims); 'dp' is gathered after a chunk.
+            self.step_collectives = (("ep", dist.get_backend(self.ep_group)),)
             part = dict(dims=self.place.dims,
                         shared=axis_index(mesh, "ep") == 0)
             self.nll_fn = functools.partial(self.nll_fn, **part)

@@ -28,6 +28,20 @@ A capture that fails raises; nothing falls back to eager.  Eager and
 captured runs give the same numbers: they run the same code.  On the CPU
 the same body runs plainly (``capture=False``), which is how the tests hold
 it against eager ``outer_step``.
+
+A process of a meshed run (``parallel/``) captures its own step, the
+counterpart of JAX's one program under ``NamedSharding``s.  The step may
+all-reduce inside (over 'ep' or 'sp'): NCCL's all-reduces are kernels
+that a graph captures, gloo's are host round trips that it cannot, so
+``inference.trainer.capture_rule`` decides from the groups' backends.
+The eager warm-ups on the side stream reach every group the step uses,
+which creates each NCCL communicator before the capture.  What a meshed
+run sums or gathers after a step (the trace over 'dp', the rollouts over
+the world) runs outside the graphs, eagerly.  A graph that captured
+NCCL's all-reduces holds its communicators until it is freed, and a
+trainer keeps its graphs in a reference cycle: drop the trainer and run
+``gc.collect()`` before ``destroy_process_group``, or the groups' teardown
+waits for ever (``parallel.distributed.spawn_local``'s ranks do).
 """
 
 from __future__ import annotations

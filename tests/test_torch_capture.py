@@ -18,7 +18,8 @@ the CPU), under a guard that raises on any host read from the port
 
 Then the thinning sub-step likewise, a checkpoint moving between the two
 paths bit-equal (``CHECKPOINT_FORMAT`` 1), and the refusals: ``capture=True``
-on the CPU and under a mesh, a CPU generator for a captured step.
+on the CPU and under a gloo mesh whose step all-reduces, a CPU generator for
+a captured step.  The meshed step's body: tests/test_torch_dist_capture.py.
 """
 
 import jax
@@ -309,25 +310,38 @@ def test_a_captured_step_refuses_a_cpu_generator():
 
 
 def test_capture_true_raises_under_a_mesh(tmp_path):
-    """A meshed trainer stays eager: its collectives are not captured."""
+    """A mesh refuses capture only for what its step holds: a world-1 mesh
+    issues no collective, so on the CPU ``capture=True`` raises for the
+    CPU and the default runs eagerly; a gloo mesh whose step all-reduces
+    over 'ep' refuses with the backend named, on every process."""
     from ffvd_tpu_torch.parallel import make_mesh
+    from ffvd_tpu_torch.parallel.distributed import spawn_local
+    from ffvd_tpu_torch.parallel.rank_jobs import raise_job
+    kw = dict(dataset="flutter", num_inducing=M, x_dim=D, case=4)
+    base, y, control = deep_model(18, n=24, n_hidden=0)
+    leaves = {k: np.stack([v] * 2) for k, v in base.items()}
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             world_size=1, rank=0)
     try:
-        kw = dict(dataset="flutter", num_inducing=M, x_dim=D, case=4)
-        base, y, control = deep_model(18, n=24, n_hidden=0)
-        leaves = {k: np.stack([v] * 2) for k, v in base.items()}
         mct = MultiChainTrainer(FFVDConfig(**kw), SSMData(
             y=torch.as_tensor(y), control=torch.as_tensor(control)), 2,
             mesh=make_mesh(1))
         state = mct.init_state(params_from_numpy(leaves))
-        with pytest.raises(ValueError, match="mesh"):
+        assert mct.step_collectives == ()
+        with pytest.raises(ValueError, match="CUDA device"):
             mct.run(state, 1, capture=True)
         assert not mct.capture_mode(state, None)
         _, trace = mct.run(state, 2)
         assert trace.shape == (2, 2) and state.step == 2
+        assert not hasattr(mct, "_graph")
     finally:
         dist.destroy_process_group()
+    spec = dict(cfg=kw, leaves=leaves, y=y, control=control, iters=1,
+                mesh=(1, 2), capture=True)
+    said = spawn_local(raise_job, 2, "gloo", "cpu", args=(spec,),
+                       timeout=240, tmpdir=str(tmp_path))
+    assert len(said) == 2 and said[0] == said[1]
+    assert "'ep' on gloo" in said[0] and "CUDA device" not in said[0]
 
 
 def test_the_feed_bound_is_the_device_count():

@@ -20,7 +20,8 @@ here, fp64, small models (D=2, M=6, n=20, T=12, S=3):
   ``multichain_moments`` (``ffvd_tpu/eval/ensemble.py:105-148``);
 - its step reads nothing back to the host (``tests/torch_host_guard.py``);
   a trainer keeps its step for the next call of the same shapes;
-- ``capture=True`` raises on the CPU and under a mesh.
+- ``capture=True`` raises on the CPU and under a gloo mesh whose step
+  all-reduces over 'ep'.
 """
 
 import jax
@@ -346,23 +347,37 @@ def test_capture_true_raises_on_the_cpu():
 
 
 def test_capture_true_raises_under_a_mesh(tmp_path):
-    """A meshed trainer's rollout stays eager, as its step does."""
+    """A meshed trainer's rollout follows its step's capture rule: at world
+    size 1 (no collective) ``capture=True`` raises for the CPU only and
+    the default runs the recursion plainly; on a gloo mesh that splits the
+    dims over 'ep' it refuses with the backend named, on every process."""
     from ffvd_tpu_torch.parallel import make_mesh
+    from ffvd_tpu_torch.parallel.distributed import spawn_local
+    from ffvd_tpu_torch.parallel.rank_jobs import raise_job
+    kw = _kw("SquaredExponential", 2, 4)
+    leaves, y, control = deep_model(46, n=N, n_hidden=1)
+    stacked = stack_leaves([leaves] * C)
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             world_size=1, rank=0)
     try:
-        leaves, y, control = deep_model(46, n=N, n_hidden=1)
         mct = MultiChainTrainer(
-            FFVDConfig(**_kw("SquaredExponential", 2, 4)),
+            FFVDConfig(**kw),
             SSMData(y=torch.as_tensor(y), control=torch.as_tensor(control)),
             C, mesh=make_mesh(1, x_dim=D))
-        state = mct.init_state(params_from_numpy(stack_leaves([leaves] * C)))
-        with pytest.raises(ValueError, match="mesh"):
+        state = mct.init_state(params_from_numpy(stacked))
+        with pytest.raises(ValueError, match="CUDA device"):
             multichain_moments(mct, state, T, num=S, capture=True,
                                generator=torch.Generator())
+        assert not hasattr(mct, "_rollout_graph")
         chains, _ = multichain_moments(mct, state, T, num=S,
                                        generator=torch.Generator())
         assert len(chains) == C and mct._rollout_graph.sig[0] is False
         assert all(np.isfinite(ch[0]).all() for ch in chains)
     finally:
         dist.destroy_process_group()
+    spec = dict(cfg=kw, leaves=stacked, y=y, control=control, iters=0,
+                mesh=(1, 2), moments=dict(test_len=T, seed=3, capture=True))
+    said = spawn_local(raise_job, 2, "gloo", "cpu", args=(spec,),
+                       timeout=240, tmpdir=str(tmp_path))
+    assert len(said) == 2 and said[0] == said[1]
+    assert "'ep' on gloo" in said[0]
