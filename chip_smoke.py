@@ -87,9 +87,16 @@ that each print one JSON line:
    against one of 80, the C5 chains' captured thinning (10 × 32
    sub-steps) and the deep chains' captured recursion against eager; 8 C4
    chains fp32, 200 iterations captured and 200 eager, ms an iteration
-   beside one process's captured 8 chains; 7d 7b and 7c on NCCL over 4 cards, eagerly
-   and captured (``capture=True``, the all-reduces inside the graph), or
-   ``{"phase": "7d", "ran": false, "cards": n}``;
+   beside one process's captured 8 chains; 7d 7b and 7c on NCCL over 4
+   cards, eagerly and under the default (captured: the all-reduces inside
+   a graph that lives for one call), with 4 C6 chains over 'ep', each
+   against its eager twin (1e-12) and one card (1e-10), one replay an
+   iteration, 2 more under "error"; the C4 chains' launches against the
+   plain rollout; a checkpoint of 8 C4 chains saved every 500 of 1000
+   iterations, resumed bit-equal, ms an iteration beside the
+   uninterrupted run; every rank's ``destroy_process_group`` returning
+   with its trainers held; or ``{"phase": "7d", "ran": false,
+   "cards": n}``;
 8a. checkpoints of a meshed run, in 7b's 4 gloo ranks sharing the card,
    dp=2 × ep=2, 8 ballbeam C4 chains fp32, 10 iterations, a checkpoint, a
    restore into a fresh state, 10 more: bit-equal to 20 uninterrupted meshed
@@ -156,8 +163,9 @@ all-reduces run on gloo, 7b and 7c, stays eager); phases 7, 9 and 10 and
 the profile script (``scripts/profile_torch_train.py``) set
 ``capture=False`` to compare.
 
-``python3 chip_smoke.py --nccl-cards`` builds the kernel and runs phase
-7d alone, on a machine with 4 cards.
+``python3 chip_smoke.py --nccl-cards`` builds the kernel and runs phases
+2, 2b, 7d and 6, on a machine with 4 cards, and prints a kernels line
+whose launches are 7d's (report: ``chiprun_out/chip_smoke_nccl_report.json``).
 
 The last lines are the card's name and power limit, the kernels line, and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  Without
@@ -1702,8 +1710,8 @@ def phase_captured(torch, card, main):
 
 
 def _collected(torch):
-    """Collect the cyclic garbage (an earlier phase's trainers and their
-    graphs) and synchronise, so that freeing it is not timed."""
+    """Collect the cyclic garbage of earlier phases and synchronise, so
+    that freeing it is not timed."""
     import gc
     gc.collect()
     torch.cuda.synchronize()
@@ -2657,64 +2665,198 @@ def _check_dp_only(torch, ranks, singles, specs, what, on_card=True):
     return rep
 
 
-def _nccl_plan(plan_b, plan_c):
-    """7d's jobs: 7b's and 7c's eagerly (``capture=False``), then the
-    fp64 and timed ones again captured (``capture=True``: the all-reduces
-    over 'ep' or 'sp' inside the graph)."""
-    eager = [(n, k, dict(s, capture=False)) for n, k, s in plan_b + plan_c]
-    captured = [(f"{n}_captured", k, dict(s, capture=True, sync_check=2))
-                for n, k, s in plan_b[:3] + plan_c]
-    return eager + captured
+# 7d's meshed checkpoint over NCCL: iterations of the run, saved every half.
+NCCL_CK_ITERS = 1000
 
 
-def phase_mesh_cards(torch, card, singles, plan_b, plan_c):
-    """7d: 7b and 7c over NCCL, one rank a card on 4 cards, eagerly and
-    captured: the captured runs against the eager ones within rtol 1e-12,
-    one replay an iteration, none syncing; both rates beside one card's
-    captured rate (``singles``, this process on cuda:0)."""
-    from ffvd_tpu_torch.parallel.distributed import spawn_local
-    from ffvd_tpu_torch.parallel.rank_jobs import jobs_in_turn
+def _nccl_jobs():
+    """7d's jobs beyond 7b's and 7c's: 4 ballbeam C6 chains (P=100) over
+    dp=2 × ep=2 in fp64, whose step gathers the dims over 'ep'
+    (``MeshBatchedTrainer.whole_dims``), and the meshed checkpoint of 8 C4
+    chains in fp32 (``checkpoint_job``'s "full" mode: ``NCCL_CK_ITERS``
+    iterations uninterrupted, then through ``run_with_checkpoints`` saving
+    every half, restored there and run on).  Returns (the C6 job, the
+    checkpoint job, its directory)."""
+    import tempfile
+    c6 = ("C6x4_ep_fp64", "chains",
+          _chain_spec("ballbeam", 4, 6, "float64", 3, mesh=(2, 2)))
+    ck_dir = tempfile.mkdtemp(prefix="ffvd_ckpt_nccl_")
+    ck = ("ck_full", "checkpoint", _chain_spec(
+        "ballbeam", 8, 4, "float32", NCCL_CK_ITERS, mesh=(2, 2),
+        hold_trainer=True, trainer="chains", mode="full",
+        first=NCCL_CK_ITERS // 2, dir=ck_dir))
+    return c6, ck, ck_dir
+
+
+def _nccl_plan(plan_b, plan_c, c6, ck):
+    """7d's jobs: 7b's, 7c's and the C6 job eagerly (``capture=False``),
+    then the fp64 and timed ones and the C6 job again under the default
+    (``capture=None``: the all-reduces over 'ep' or 'sp' captured in a
+    graph that lives for one call) with 2 more replays under sync debug
+    "error", then the checkpoint's job (default).  The C4 chains' moments
+    hold each rollout launch against the plain rollout, and every
+    default job's trainer stays referenced (``hold_trainer``) through its
+    rank's ``destroy_process_group``."""
+    def plain(spec):
+        if "moments" not in spec:
+            return spec
+        return dict(spec, moments=dict(spec["moments"], check_plain=True))
+    eager = [(n, k, dict(plain(s), capture=False))
+             for n, k, s in plan_b + plan_c + [c6]]
+    default = [(f"{n}_captured", k, dict(plain(s), capture=None,
+                                          sync_check=2, hold_trainer=True))
+               for n, k, s in plan_b[:3] + plan_c + [c6]]
+    return eager + default + [ck]
+
+
+def _check_nccl_default(torch, ranks, singles, name, spec):
+    """A default (captured) 7d job against its eager twin (1e-12 of each
+    tensor's scale) and, in fp64, one card (1e-10): captured, one replay an
+    iteration (``timed``: over the timed calls, which capture again),
+    none of 2 more syncing, its graph released when its call returned.
+    Returns its report entry."""
     from ffvd_tpu_torch.utils.graphs import WARMUP
+    cap = [r[f"{name}_captured"][0] for r in ranks]
+    eag = [r[name][0] for r in ranks]
+    d = [_diff(torch, c, e, 1e-12, 0.0) for c, e in zip(cap, eag)]
+    one = max(_diff(torch, c, singles[name], 1e-10, 1e-12)[0] for c in cap)
+    stats = [c["graph_stats"] or {} for c in cap]
+    entry = {"captured_vs_eager_max_rel_diff": max(x[0] for x in d),
+             "bit_equal": all(x[2] for x in d),
+             "vs_one_card_max_rel_diff": one,
+             "replays_by_rank": [c["replays"] for c in cap],
+             "eager_replays_by_rank": [e["replays"] for e in eag],
+             "sync_check_replays_by_rank": [c.get("sync_check_replays")
+                                            for c in cap],
+             "sync_check_recaptured_by_rank": [
+                 c.get("sync_check_recaptured") for c in cap],
+             "capture_s_by_rank": [st.get("capture_s") for st in stats],
+             "pool_MiB_by_rank": [(st.get("pool_bytes") or 0) / 2 ** 20
+                                  for st in stats],
+             "graphs_held_after_the_calls": [c["held_live_graphs"]
+                                             for c in cap],
+             "step_collectives": cap[0]["step_collectives"],
+             "seconds_default": [r[f"{name}_captured"][1] for r in ranks],
+             "seconds_eager": [r[name][1] for r in ranks]}
+    timed = spec.get("timed")
+    if timed:
+        m = max(timed // 10, 2)
+        want = 2 * timed + m - WARMUP
+        entry.update(
+            ms_per_iter_default_first_call_by_rank=[
+                c["timed"]["ms_per_iter"] for c in cap],
+            ms_per_iter_default_second_call_by_rank=[
+                c["timed"]["ms_per_iter_second_call"] for c in cap],
+            ms_per_iter_eager_by_rank=[e["timed"]["ms_per_iter"]
+                                       for e in eag],
+            ms_per_iter_eager_second_call_by_rank=[
+                e["timed"]["ms_per_iter_second_call"] for e in eag],
+            one_card_captured_ms_per_iter=singles[name]["timed"]
+            ["ms_per_iter"],
+            one_card_captured_ms_per_iter_second_call=singles[name]["timed"]
+            ["ms_per_iter_second_call"],
+            timed_iterations=timed)
+    else:
+        want = spec["iters"] - WARMUP
+    fp64 = spec.get("dtype") == "float64"
+    check(entry["captured_vs_eager_max_rel_diff"] <= 1e-12
+          and (one <= 1e-10 or not fp64)
+          and all(c["replays"] == want for c in cap)
+          and all(e["replays"] is None for e in eag)
+          and all(c.get("sync_check_replays") == 2 for c in cap)
+          and all(h == [] for h in entry["graphs_held_after_the_calls"])
+          and entry["step_collectives"] in ((("ep", "nccl"),),
+                                            (("sp", "nccl"),)),
+          f"7d {name}: the default over NCCL: {entry}")
+    return entry
+
+
+def phase_mesh_cards(torch, card, singles, plan_b, plan_c, device="cuda"):
+    """7d: 7b and 7c over NCCL, one rank a card on 4 cards, eagerly and
+    under the default (captured, ``_check_nccl_default``), with C6 chains
+    over 'ep' and a meshed checkpoint resumed bit-equal to the
+    uninterrupted run; both rates beside one card's captured rate
+    (``singles``, this process on cuda:0); the C4 chains' rollout launches
+    against the plain rollout; and the teardown: every rank returns from
+    ``destroy_process_group`` with its default runs' trainers alive and no
+    collection of cyclic garbage, or ``spawn_local`` raises at 240 s.
+    Returns the report, with the launches and their largest difference
+    from the plain rollout.  ``device="cpu"`` rehearses the jobs on the
+    host over gloo, where the default runs eagerly and the checks of a
+    capture fail."""
+    import shutil
+
+    from ffvd_tpu_torch.parallel.distributed import spawn_local
+    from ffvd_tpu_torch.parallel.rank_jobs import chains_job, jobs_in_turn
+    from ffvd_tpu_torch.utils.graphs import WARMUP
+    on_card = device == "cuda"
+    c6, ck, ck_dir = _nccl_jobs()
+    singles = dict(singles, **{c6[0]: chains_job(
+        torch.device("cuda:0" if on_card else "cpu"),
+        dict(c6[2], mesh=None))})
     t0 = time.time()
-    ranks = spawn_local(jobs_in_turn, 4, "nccl", "cuda",
-                        args=(_nccl_plan(plan_b, plan_c),), timeout=240)
+    try:
+        ranks = spawn_local(jobs_in_turn, 4, "nccl" if on_card else "gloo",
+                            device,
+                            args=(_nccl_plan(plan_b, plan_c, c6, ck),),
+                            timeout=240)
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
     rep = {"ran": True, "cards": torch.cuda.device_count(),
-           "backend": "nccl", "seconds": time.time() - t0}
+           "backend": "nccl" if on_card else "gloo",
+           "seconds": time.time() - t0,
+           "teardown": "every rank returned from destroy_process_group "
+                       "with its trainers held (spawn_local joined them)"}
     for key, check_fn in (("7b", _check_dp_ep), ("7c", _check_sp)):
-        rep[key] = check_fn(torch, ranks, singles, f"7d {key}")
-    rep["captured"] = {}
-    for name, _, spec in plan_b[:3] + plan_c:
-        cap = [r[f"{name}_captured"][0] for r in ranks]
-        eag = [r[name][0] for r in ranks]
-        d = [_diff(torch, c, e, 1e-12, 0.0) for c, e in zip(cap, eag)]
-        entry = {"captured_vs_eager_max_rel_diff": max(x[0] for x in d),
-                 "bit_equal": all(x[2] for x in d),
-                 "vs_one_card_max_rel_diff": max(
-                     _diff(torch, c, singles[name], 1e-10, 1e-12)[0]
-                     for c in cap),
-                 "replays_by_rank": [c["replays"] for c in cap],
-                 "replays_after_sync_check_by_rank": [
-                     c.get("replays_after_sync_check") for c in cap],
-                 "step_collectives": cap[0]["step_collectives"]}
-        ok = max(x[0] for x in d) <= 1e-12 and all(
-            c["replays"] is not None
-            and c.get("replays_after_sync_check") == c["replays"] + 2
-            for c in cap)
-        if spec.get("timed"):
-            entry.update(
-                ms_per_iter_captured_by_rank=[c["timed"]["ms_per_iter"]
-                                              for c in cap],
-                ms_per_iter_eager_by_rank=[e["timed"]["ms_per_iter"]
-                                           for e in eag],
-                one_card_captured_ms_per_iter=singles[name]["timed"]
-                ["ms_per_iter"])
-        else:
-            ok = ok and all(c["replays"] == spec["iters"] - WARMUP
-                            for c in cap)
-        rep["captured"][name] = entry
-        check(ok, f"7d {name}: captured over NCCL: {entry}")
+        rep[key] = check_fn(torch, ranks, singles, f"7d {key}", on_card)
+    rep["default"] = {
+        name: _check_nccl_default(torch, ranks, singles, name, spec)
+        for name, _, spec in plan_b[:3] + plan_c + [c6]}
+    c4 = [(r["C4x8_fp64"][0], r["C4x8_fp64_captured"][0]) for r in ranks]
+    launches = sum(e["launches"] + c["launches"] for e, c in c4)
+    plain_err = max(sum((e["plain_max_abs_err"] + c["plain_max_abs_err"]
+                         for e, c in c4), []), default=math.nan)
+    moments = max(max(_moments_diff(c["moments"], e["moments"]))
+                  for e, c in c4)
+    rep["default"]["C4x8_fp64"].update(
+        moments_default_vs_eager=moments,
+        launch_rows_by_rank=[c["launch_rows"] for _, c in c4],
+        rollout_calls_by_rank=[c["rollout_calls"] for _, c in c4],
+        launches_eager_and_default=launches,
+        launches_vs_plain_max_abs_err=plain_err)
+    check(moments <= 1e-12 and plain_err <= 1e-9
+          and sorted(sum((c["rollout_calls"] for _, c in c4), []))
+          == [(40, 0), (40, 40)] and launches == (4 if on_card else 0),
+          f"7d C4 moments: {rep['default']['C4x8_fp64']}")
+    full = [r["ck_full"][0] for r in ranks]
+    half = NCCL_CK_ITERS // 2
+    bit = lambda a, b: (_diff(torch, a, b, 0.0, 0.0)[2]
+                        and torch.equal(a["trace"], b["trace"]))
+    ms = lambda key: [1e3 * f[key]["seconds"] / NCCL_CK_ITERS for f in full]
+    ck_rep = {
+        "chains": 8, "precision": "fp32", "iterations": NCCL_CK_ITERS,
+        "saved_every": half,
+        "resumed_bit_equal_by_rank": [bit(f, f["uninterrupted"])
+                                      for f in full],
+        "checkpointed_bit_equal_by_rank": [
+            bit(f["checkpointed"], f["uninterrupted"]) for f in full],
+        "files_by_rank": [f["files"] for f in full],
+        "replays_by_rank": [[f[k]["replays"] for k in (
+            "uninterrupted", "checkpointed")] + [f["replays"]] for f in full],
+        "ms_per_iter_uninterrupted_by_rank": ms("uninterrupted"),
+        "ms_per_iter_checkpointed_by_rank": ms("checkpointed"),
+        "graphs_held_after_the_calls": [f["held_live_graphs"] for f in full]}
+    rep["checkpoint"] = ck_rep
+    check(all(ck_rep["resumed_bit_equal_by_rank"])
+          and all(ck_rep["checkpointed_bit_equal_by_rank"])
+          and all(f == [f"ckpt_{half:09d}.pt", f"ckpt_{NCCL_CK_ITERS:09d}.pt"]
+                  for f in ck_rep["files_by_rank"])
+          and all(x == [NCCL_CK_ITERS - WARMUP] * 2 + [half - WARMUP]
+                  for x in ck_rep["replays_by_rank"])
+          and all(h == [] for h in ck_rep["graphs_held_after_the_calls"]),
+          f"7d checkpoint over NCCL: {ck_rep}")
     emit("7d", card=card, **rep)
-    return rep
+    return {**rep, "launches": launches, "plain_max_abs_err": plain_err}
 
 
 def _one_process_runs(torch, dev, plan_b, plan_c, specs_e=None):
@@ -2838,8 +2980,10 @@ def phase_mesh(torch, card, device="cuda:0"):
     emit("mesh_dp_only_7e", card=card, **out["7e"])
     # 7d: NCCL over 4 cards
     n = torch.cuda.device_count() if on_card else 0
+    nccl = {}
     if n >= 4:
         out["7d"] = phase_mesh_cards(torch, card, singles, plan_b, plan_c)
+        nccl = {"mesh_nccl_4cards_dp2ep2_C4x8": out["7d"]["launches"]}
     else:
         out["7d"] = {"ran": False, "cards": n}
         emit("7d", **out["7d"])
@@ -2852,12 +2996,12 @@ def phase_mesh(torch, card, device="cuda:0"):
         "mesh_gloo_dp4_C4x8_captured": sum(out["7e"]["C4x8_fp64"]
                                            ["launches_by_rank"]),
         "mesh_gloo_dp4_C5x4_captured": sum(out["7e"]["C5x4_thin_fp64"]
-                                           ["launches_by_rank"])}}
+                                           ["launches_by_rank"]), **nccl}}
 
 
 def phase_nccl_cards_only(torch, card):
     """``--nccl-cards``: phase 7d alone, for a machine with 4 cards (its
-    one-card twins on cuda:0 first)."""
+    one-card twins on cuda:0 first).  Returns 7d's report."""
     plan_b, plan_c = _mesh_plans()
     n = torch.cuda.device_count()
     check(n >= 4, f"--nccl-cards needs 4 cards, found {n}")
@@ -3363,6 +3507,20 @@ def phase_timing(torch, ro):
     return out
 
 
+def _kernel_entry(timing, launches, max_abs_err, **extra):
+    """The rollout kernel's entry of the ``kernels`` line: its launches
+    on the path this run drove, its largest difference from the plain
+    version, and phase 6's times at the main shapes in fp32."""
+    f32 = timing["fp32"]
+    return {"name": "rollout", "route": "cuda",
+            "source": "ffvd_tpu_torch/csrc/rollout.cu",
+            "replaces": "ffvd_tpu/ops/pallas_rollout.py:82",
+            "launches": launches, "max_abs_err": max_abs_err,
+            "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+            "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+            "library_ms": None, **extra}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3383,8 +3541,26 @@ def main() -> int:
     t0 = time.time()
     logs = cuda_build.build(["rollout"])
     if "--nccl-cards" in sys.argv[1:]:
-        phase_nccl_cards_only(torch, card)
+        # The kernel against its plain version, 7d (whose rollout
+        # launches are the path's, each held against the plain rollout),
+        # then the kernel's times.
+        worst = phase_kernel_vs_plain(torch, ro)
+        phase_per_sample_vs_plain(torch, ro)
+        rep = phase_nccl_cards_only(torch, card)
+        timing = phase_timing(torch, ro)
+        emit("phase_seconds", total=time.time() - t0)
+        kernels = {"kernels": [_kernel_entry(
+            timing, rep["launches"],
+            max(worst["fp32"], rep["plain_max_abs_err"]),
+            launches_by_path={"mesh_nccl_4cards_dp2ep2_C4x8":
+                              rep["launches"]},
+            meshed_launches_vs_plain_max_abs_err=rep["plain_max_abs_err"])]}
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_nccl_report.json").write_text(
+            json.dumps({**REPORT, **kernels}, indent=1))
         print(card)
+        print(json.dumps(kernels))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3444,15 +3620,9 @@ def main() -> int:
 
     f32, f64 = timing["fp32"], timing["fp64"]
     ps32, ps64 = f32["per_sample"], f64["per_sample"]
-    kernels = {"kernels": [{
-        "name": "rollout", "route": "cuda",
-        "source": "ffvd_tpu_torch/csrc/rollout.cu",
-        "replaces": "ffvd_tpu/ops/pallas_rollout.py:82",
-        "launches": launches, "max_abs_err": worst["fp32"],
-        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
-        "library_ms": None, "plan": f32["plan"],
-        "launches_by_path": {
+    kernels = {"kernels": [_kernel_entry(
+        timing, launches, worst["fp32"], plan=f32["plan"],
+        launches_by_path={
             "C4": launches,
             **{k: v["rollout_launches_fit"] + v["rollout_launches_evaluate"]
                for k, v in {**sampler, "C6": pg_path, "deep_C4": deep,
@@ -3465,14 +3635,14 @@ def main() -> int:
             "study_quick_11": study_launches,
             "study_last_quick_11c": study_last,
             **{f"example_{k}": v for k, v in example_launches.items()}},
-        "fp32_s80_per_sample": {k: timing["fp32_s80_per_sample"][k] for k in
-                                ("ms", "plain_ms", "bound_ms", "bound_by")},
-        "fp32_m512_global": {k: timing["fp32_m512_global"][k] for k in
+        fp32_s80_per_sample={k: timing["fp32_s80_per_sample"][k] for k in
                              ("ms", "plain_ms", "bound_ms", "bound_by")},
-        "fp64": {"ms": f64["ms"], "plain_ms": f64["plain_ms"],
-                 "bound_ms": f64["bound_ms"], "bound_by": f64["bound_by"],
-                 "max_abs_err": worst["fp64"], "plan": f64["plan"]},
-        "per_sample": {
+        fp32_m512_global={k: timing["fp32_m512_global"][k] for k in
+                          ("ms", "plain_ms", "bound_ms", "bound_by")},
+        fp64={"ms": f64["ms"], "plain_ms": f64["plain_ms"],
+              "bound_ms": f64["bound_ms"], "bound_by": f64["bound_by"],
+              "max_abs_err": worst["fp64"], "plan": f64["plan"]},
+        per_sample={
             "launches": sum(v["rollout_launches_evaluate"]
                             for v in sampler.values())
             + multichain["C4x8"] + multichain["C5x4"]
@@ -3483,8 +3653,7 @@ def main() -> int:
             "fp64": {"ms": ps64["ms"], "plain_ms": ps64["plain_ms"],
                      "bound_ms": ps64["bound_ms"],
                      "bound_by": ps64["bound_by"],
-                     "max_abs_err": ps_worst["fp64"]}},
-    }]}
+                     "max_abs_err": ps_worst["fp64"]}})]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(

@@ -24,6 +24,7 @@ import torch
 import torch.distributed as dist
 
 from ffvd_tpu_torch.model.likelihoods import use_full_r
+from ffvd_tpu_torch.utils.graphs import scoped
 
 Chain = Tuple[np.ndarray, np.ndarray, np.ndarray]  # y_s (S,T,P), v_s, r2 (P,)
 
@@ -101,6 +102,7 @@ def ensemble_evaluate(models: List, horizon: int = 30,
 
 
 @torch.no_grad()
+@scoped
 def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
                        spacing: Optional[int] = None,
                        generator: Optional[torch.Generator] = None,
@@ -126,9 +128,10 @@ def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
     tensor per hidden layer, ``thin_posterior``'s) its inter-layer normals
     of the rollout and of the thinning.  ``capture``, as in
     ``Trainer.run``: by default on the card the thinning and the recursion
-    replay their captured steps, on a 'dp'-only mesh too; never on the
-    CPU, and eagerly where the trainer's step all-reduces
-    (``inference.trainer.capture_rule``, which says when True raises).
+    replay their captured steps, on a 'dp'-only mesh and over NCCL too;
+    never on the CPU, and eagerly where the trainer's step all-reduces
+    over gloo (``inference.trainer.capture_rule``, which says when True
+    raises).
 
     The emission moments use each chain's params after thinning, as JAX's
     do: the rollouts came from the moved chain.
@@ -142,7 +145,9 @@ def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
     share of the thinned state.  The seed is drawn on every process.  A
     recursion's rows are cut the same way, and each process that rolls
     out replays its own captured step.  The sums over WORLD and the
-    emission's gather run after the graphs, eagerly."""
+    emission's gather run after the graphs, eagerly.  A trainer whose step
+    all-reduces over NCCL keeps its graphs until this call returns
+    (``utils.graphs.graph_scope``)."""
     from ffvd_tpu_torch.eval.rollout import (posterior_inputs,
                                              recursion_rollout,
                                              rollout_controls, thin_posterior)

@@ -136,20 +136,20 @@ def _thin_move(trainer: Trainer, params: GPSSMParams, generator,
 
 class _ThinGraph:
     """``_thin_move`` on static chain buffers, as a ``utils.graphs.
-    StepGraph``; bound to the fixed leaves of ``params``, the data and the
-    generator (``fp``) and to the draws' signature (``sig``)."""
+    StepGraph`` whose calls take the trainer; bound to the fixed leaves of
+    ``params``, the data and the generator (``fp``) and to the draws'
+    signature (``sig``)."""
 
-    def __init__(self, trainer, params, generator, sub, sstate, d, fp,
+    def __init__(self, params, generator, sub, sstate, d, fp,
                  capture: bool):
-        self.sub = {k: v.clone() for k, v in sub.items()}
-        self.sstate = sstate.map(torch.clone)
+        sub = self.sub = {k: v.clone() for k, v in sub.items()}
+        sstate = self.sstate = sstate.map(torch.clone)
 
-        def body(dd):
-            new, ss = _thin_move(trainer, params, generator, self.sub,
-                                 self.sstate, dd)
+        def body(dd, trainer):
+            new, ss = _thin_move(trainer, params, generator, sub, sstate, dd)
             with torch.no_grad():
-                _assign(self.sub, new)
-                self.sstate.assign_(ss)
+                _assign(sub, new)
+                sstate.assign_(ss)
 
         self.graph = graphs.StepGraph(body, d, capture, generator)
         self.fp, self.sig = fp, (capture, graphs.signature(d))
@@ -161,6 +161,7 @@ class _ThinGraph:
             self.sstate.assign_(sstate)
 
 
+@graphs.scoped
 def thin_posterior(trainer: Trainer, state: TrainState, num: int,
                    spacing: int, generator: Optional[torch.Generator] = None,
                    thin_noise: Optional[Dict[str, torch.Tensor]] = None,
@@ -183,7 +184,8 @@ def thin_posterior(trainer: Trainer, state: TrainState, num: int,
     sub-step is one replay of a captured sub-step (``utils/graphs.py``),
     the counterpart of ``build_collect``'s thinning scan, with its injected
     normals copied into static buffers.  A sample is a copy of the chain's
-    buffers.  The trainer keeps the graph for its next call."""
+    buffers.  The trainer keeps the graph for its next call, unless the
+    step all-reduces over NCCL (``utils.graphs.graph_scope``)."""
     return _thin(trainer, state, num, spacing, generator, thin_noise,
                  thin_prop, trainer.capture_mode(state, capture) or None)
 
@@ -218,13 +220,13 @@ def _thin(trainer: Trainer, state: TrainState, num: int, spacing: int,
         if g is None or g.fp != fp or g.sig != (graph,
                                                 graphs.signature(draws(0, 0))):
             g = trainer._thin_graph = _ThinGraph(
-                trainer, params, generator, sub, sstate, draws(0, 0), fp,
-                graph)
+                params, generator, sub, sstate, draws(0, 0), fp, graph)
         g.load(sub, sstate)
         sub, sstate = g.sub, g.sstate
+        step = g.graph
 
         def move(sub, sstate, d):
-            g.graph(d)
+            step(d, trainer)
             return sub, sstate
         keep = torch.clone
     else:
@@ -349,26 +351,25 @@ class _RolloutGraph:
     signature (``sig``); it owns every buffer it reads."""
 
     def __init__(self, cfg, inputs: dict, capture: bool):
-        self.static = graphs.tree_map(torch.clone, inputs)
-        noise = self.static["noise"]
-        n_hidden = len(self.static["hidden"])
-        self.t = torch.zeros(1, dtype=torch.int64, device=noise.device)
-        self.x = noise.new_empty(noise.shape[:2] + noise.shape[3:])
-        self.xs = torch.empty_like(noise)
-        self.vs = torch.empty_like(noise)
+        st = self.static = graphs.tree_map(torch.clone, inputs)
+        noise = st["noise"]
+        n_hidden = len(st["hidden"])
+        t = self.t = torch.zeros(1, dtype=torch.int64, device=noise.device)
+        x = self.x = noise.new_empty(noise.shape[:2] + noise.shape[3:])
+        xs = self.xs = torch.empty_like(noise)
+        vs = self.vs = torch.empty_like(noise)
         step = torch.func.vmap(functools.partial(_transition, cfg, n_hidden),
                                in_dims=(0, 0, None, 0, 0))
 
         def body(_):
-            st, t = self.static, self.t
             col = lambda e: e.index_select(2, t)[:, :, 0]
             with no_vmap_fallback():
-                x, v = step(st["sets"], self.x,
-                            st["controls"].index_select(0, t)[0],
-                            col(st["noise"]), [col(e) for e in st["hidden"]])
-            self.xs.index_copy_(2, t, x.unsqueeze(2))
-            self.vs.index_copy_(2, t, v.unsqueeze(2))
-            self.x.copy_(x)
+                x1, v = step(st["sets"], x,
+                             st["controls"].index_select(0, t)[0],
+                             col(st["noise"]), [col(e) for e in st["hidden"]])
+            xs.index_copy_(2, t, x1.unsqueeze(2))
+            vs.index_copy_(2, t, v.unsqueeze(2))
+            x.copy_(x1)
             t.add_(1)
 
         self.graph = graphs.StepGraph(body, {}, capture)
@@ -384,6 +385,7 @@ class _RolloutGraph:
         return self.xs.clone(), self.vs.clone()
 
 
+@graphs.scoped
 def recursion_rollout(trainer: Trainer, params: GPSSMParams,
                       controls: torch.Tensor, noise: torch.Tensor,
                       hidden_noise: Optional[List[torch.Tensor]] = None,
@@ -409,7 +411,8 @@ def recursion_rollout(trainer: Trainer, params: GPSSMParams,
     step from a CUDA graph (on the card; the caller decides, see
     ``collect_posterior``), else run it plainly.  The trainer keeps the
     graph (``trainer._rollout_graph``) for its next call with inputs of
-    the same shapes."""
+    the same shapes, unless its step all-reduces over NCCL
+    (``utils.graphs.graph_scope``)."""
     if len(hidden_noise or ()) != len(params.hidden):
         raise ValueError(f"{len(params.hidden)} hidden layers need as many "
                          "hidden_noise tensors, one a layer")
@@ -429,6 +432,7 @@ def recursion_rollout(trainer: Trainer, params: GPSSMParams,
 
 
 @torch.no_grad()
+@graphs.scoped
 def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
                       num: Optional[int] = None,
                       generator: Optional[torch.Generator] = None,

@@ -169,6 +169,17 @@ class SubsetOps:
         return GPSSMParams.from_leaves({**into.leaves(), **sub})
 
 
+def _scoped(method: Callable) -> Callable:
+    """``utils.graphs.scoped`` for this module's methods: ``graph_scope``
+    is imported at the call, since ``utils/`` imports this module."""
+    @functools.wraps(method)
+    def call(self, *args, **kw):
+        from ffvd_tpu_torch.utils.graphs import graph_scope
+        with graph_scope(self):
+            return method(self, *args, **kw)
+    return call
+
+
 def capture_rule(capture: Optional[bool], on_card: bool,
                  collectives: Iterable[Tuple[str, str]] = ()) -> bool:
     """Whether a step replays a CUDA graph (``utils/graphs.py``).
@@ -177,17 +188,17 @@ def capture_rule(capture: Optional[bool], on_card: bool,
     the step issues.  A CUDA graph captures NCCL's all-reduces (their
     kernels run on the card) and not gloo's (a host round trip).  So a
     step may be captured when it issues no collective (one process, a
-    'dp'-only mesh, a world of one) or when every collective runs on NCCL.
+    'dp'-only mesh, a world of one) or when every collective runs on NCCL;
+    a graph of NCCL's lives only as long as the call that made it
+    (``utils.graphs.graph_scope``).
 
-    ``capture`` None: captured on the card when the step issues no
-    collective, else eager (over NCCL too: a graph holding NCCL's
-    all-reduces must be freed before its groups are destroyed, which the
-    caller has to do; ``utils/graphs.py``).  True: captured, or a
-    ``ValueError`` that names the backend and the axis, or the CPU.
-    False: eager."""
+    ``capture`` None: captured on the card when every collective runs on
+    NCCL (or there is none), else eager (gloo, and the CPU); a capture
+    that fails raises.  True: captured, or a ``ValueError`` that names the
+    backend and the axis, or the CPU.  False: eager."""
     collectives = tuple(collectives)
     if capture is None:
-        return on_card and not collectives
+        return on_card and all(b == "nccl" for _, b in collectives)
     if not capture:
         return False
     held = [(axis, b) for axis, b in collectives if b != "nccl"]
@@ -270,6 +281,13 @@ class Trainer:
     # over 'dp' alone, whose trace is gathered after a chunk.  The mesh
     # trainers read it from their groups once, when they are built.
     step_collectives: Tuple[Tuple[str, str], ...] = ()
+
+    @property
+    def graphs_per_call(self) -> bool:
+        """Whether the step all-reduces over NCCL, so that a graph of it
+        holds NCCL's communicators and lives only as long as the call that
+        made it (``utils.graphs.graph_scope``)."""
+        return any(b == "nccl" for _, b in self.step_collectives)
 
     def __init__(self, cfg: FFVDConfig, data: SSMData,
                  pg_fn: Optional[Callable] = None):
@@ -591,6 +609,7 @@ class Trainer:
             state.counts[:1].add_(1)
         return self._reduce_nll(nll.detach())
 
+    @_scoped
     def run(self, state: TrainState, num_iterations: int,
             chunk_size: int = 500, nan_check: bool = True,
             generator: Optional[torch.Generator] = None,
@@ -610,9 +629,10 @@ class Trainer:
         ``capture``: replay one captured iteration from a CUDA graph
         (``utils/graphs.py``, the counterpart of JAX's jitted scan), with
         one host read a chunk, for the NaN check.  None (the default)
-        captures on the card when the step issues no collective (one
-        process or a 'dp'-only mesh; ``capture_rule``) and runs eagerly
-        otherwise and on the CPU; True raises where it cannot capture;
+        captures on the card unless the step all-reduces over gloo
+        (``capture_rule``): one process, a 'dp'-only mesh, and a mesh over
+        NCCL, whose graph lives until this call returns; it runs eagerly
+        on gloo and on the CPU.  True raises where it cannot capture;
         False runs ``outer_step`` eagerly.  Both give the same numbers."""
         capture = self.capture_mode(state, capture)
         draws = iter(draws) if draws is not None else None
@@ -647,13 +667,14 @@ class Trainer:
         return capture_rule(capture, state.params.x.device.type == "cuda",
                             self.step_collectives)
 
+    @_scoped
     def _replay(self, state: TrainState, generator, draws, n: int,
                 capture: Optional[bool] = None) -> torch.Tensor:
         """n iterations of the captured step: each copies its injected
         draws into the graph's static inputs and replays it.  One graph a
         trainer, captured again when the state, the generator, the draws'
         shapes or ``capture`` (``capture_mode``'s; False: the same step
-        run plainly) change."""
+        run plainly) change, and kept as ``graph_scope`` says."""
         from ffvd_tpu_torch.utils import graphs   # utils/ imports this module
         capture = self.capture_mode(state, capture)
         dev = state.params.x.device
@@ -669,7 +690,7 @@ class Trainer:
                     parts.append(g.flush())
                 g = self._graph = graphs.TrainGraph(self, state, generator, d,
                                                     capture)
-            parts.append(g.step(d))
+            parts.append(g.step(self, d))
             fp = g.fp       # a warm-up may have given Adam its moments
         parts.append(g.flush())
         return torch.cat([p for p in parts if p is not None])

@@ -28,9 +28,9 @@ instead of leaving the others waiting in a collective.
 from __future__ import annotations
 
 import datetime
-import gc
 import os
 import shutil
+import sys
 import tempfile
 import time
 from typing import Callable, List, Optional, Sequence
@@ -231,15 +231,15 @@ def _rank_main(rank, fn, world_size, backend, device, init_file, out_dir,
     _init_group(_backend_for(dev, backend), dev, f"file://{init_file}",
                 world_size, rank, GROUP_TIMEOUT)
     out = fn(dev, *args)
-    # A CUDA graph that captured NCCL all-reduces holds its communicators'
-    # resources until it is freed, and the trainers' graphs sit in
-    # reference cycles: free them before the groups are destroyed.
-    gc.collect()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
+    t0 = time.perf_counter()
     dist.destroy_process_group()
+    # On stderr: where a rank's teardown waits, the others' lines show it.
+    print(f"rank {rank}: destroy_process_group returned in "
+          f"{time.perf_counter() - t0:.2f} s", file=sys.stderr, flush=True)
 
 
 def spawn_local(fn: Callable, world_size: int, backend: Optional[str] = None,

@@ -18,7 +18,9 @@ iteration count ``iters``, the training generator's ``seed``, optional
 and evaluation, or "body", the captured step's body run through
 ``Trainer._replay`` (on the CPU, plainly: the CPU's view of what the card
 replays).  ``sync_check`` (replays) and ``refuse`` ask for the checks of
-a captured run (``_capture_checks``).
+a captured run (``_capture_checks``).  ``hold_trainer``: the process keeps
+the job's trainer referenced (``HELD``) until it exits, past its
+``destroy_process_group``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ import numpy as np
 import torch
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# Trainers that jobs with ``spec["hold_trainer"]`` keep alive for the rest
+# of the process.
+HELD = []
 
 
 def _to(obj, dev, dtype):
@@ -54,6 +59,11 @@ def _cpu(obj):
     if torch.is_tensor(obj):
         return obj.detach().cpu()
     return obj
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def _generator(dev, seed: int) -> torch.Generator:
@@ -110,60 +120,84 @@ def _train(trainer, state, spec, gen, draws):
 
 
 def _capture_checks(trainer, state, spec, gen, dev) -> dict:
-    """After a run: the replays of the trainer's graph (None: it ran
-    eagerly or plainly) and the collectives its step issues; with
+    """After a run: the replays of the trainer's last training graph
+    (None: it ran eagerly or plainly), all its ``utils.graphs.
+    graph_stats``, and the collectives its step issues; with
     ``spec["sync_check"]`` (k), k more replays with the card's sync debug
-    mode at "error" (any host synchronisation inside raises) and the
-    replays after them; with ``spec["refuse"]``, the message of
-    ``run(capture=True)``'s ``ValueError`` (None if it ran)."""
-    graph = getattr(trainer, "_graph", None)
-    if graph is not None and not graph.graph.captured:
-        graph = None
-    out = {"replays": None if graph is None else graph.graph.replays,
+    mode at "error" (any host synchronisation inside raises), in one
+    ``graph_scope`` with the warm-ups and capture of a graph that the run
+    released, and the replays after them and under "error"; with
+    ``spec["refuse"]``, the message of ``run(capture=True)``'s
+    ``ValueError`` (None if it ran); with ``spec["hold_trainer"]``, the
+    trainer goes to ``HELD``, and the graphs it still holds are named."""
+    from ffvd_tpu_torch.utils import graphs
+    stats = graphs.graph_stats(trainer)
+    captured = stats is not None and stats["captured"]
+    out = {"replays": stats["replays"] if captured else None,
+           "graph_stats": stats,
            "step_collectives": trainer.step_collectives}
     k = spec.get("sync_check")
-    if k and graph is not None and dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            trainer._replay(state, gen, None, k, True)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize(dev)
-        out["replays_after_sync_check"] = trainer._graph.graph.replays
+    if k and captured and dev.type == "cuda":
+        with graphs.graph_scope(trainer):
+            out["sync_check_recaptured"] = "_graph" not in vars(trainer)
+            if out["sync_check_recaptured"]:
+                trainer._replay(state, gen, None, graphs.WARMUP + 1, True)
+            before = trainer._graph.graph.replays
+            torch.cuda.synchronize(dev)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                trainer._replay(state, gen, None, k, True)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize(dev)
+            out["replays_after_sync_check"] = trainer._graph.graph.replays
+            out["sync_check_replays"] = (out["replays_after_sync_check"]
+                                         - before)
     if spec.get("refuse"):
         try:
             trainer.run(state, 1, generator=gen, capture=True)
             out["refusal"] = None
         except ValueError as exc:
             out["refusal"] = str(exc)
+    if spec.get("hold_trainer"):
+        HELD.append(trainer)
+        out["held_live_graphs"] = [a for a in graphs.GRAPH_ATTRS
+                                   if a in vars(trainer)]
     return out
 
 
 def _timed_iters(trainer, state, n: int, gen, dev, capture=None) -> dict:
-    """ms per iteration over ``n`` iterations, and the share of the wall
-    time this process spent inside the collectives: ``torch.profiler``'s
-    host time of ``distributed.COLLECTIVE_LABEL`` over n/10 more (the
+    """ms per iteration over a call of ``n`` iterations (with the warm-ups
+    and capture of a graph that lives for one call, as a user's call runs
+    it), then over a second call of ``n`` in one ``graph_scope`` with the
+    first (replays only), and the share of the wall time this process
+    spent inside the collectives: ``torch.profiler``'s host time of
+    ``distributed.COLLECTIVE_LABEL`` over n/10 more in the same scope (the
     whole all-reduce under gloo, which waits for it; the enqueue only
     under NCCL; inside a replayed graph none is seen).  ``capture`` as in
     ``Trainer.run``."""
     from ffvd_tpu_torch.parallel.distributed import COLLECTIVE_LABEL
+    from ffvd_tpu_torch.utils.graphs import graph_scope
     from ffvd_tpu_torch.utils.timing import hard_sync
-    hard_sync(dev)
-    t0 = time.perf_counter()
-    trainer.run(state, n, generator=gen, capture=capture)
-    hard_sync(dev)
-    wall = time.perf_counter() - t0
-    m = max(n // 10, 2)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        p0 = time.perf_counter()
+
+    def timed_call(m):
+        hard_sync(dev)
+        t0 = time.perf_counter()
         trainer.run(state, m, generator=gen, capture=capture)
         hard_sync(dev)
-        p_wall = time.perf_counter() - p0
+        return time.perf_counter() - t0
+
+    m = max(n // 10, 2)
+    with graph_scope(trainer):
+        wall = timed_call(n)
+        again = timed_call(n)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            p_wall = timed_call(m)
     coll = [e for e in prof.key_averages() if e.key == COLLECTIVE_LABEL]
     coll_s = sum(e.cpu_time_total for e in coll) * 1e-6
     return {"ms_per_iter": 1e3 * wall / n, "iters": n,
+            "ms_per_iter_second_call": 1e3 * again / n,
             "collective_share": coll_s / p_wall,
             "collectives_per_iter": sum(e.count for e in coll) / m,
             "profiled_iters": m}
@@ -221,14 +255,17 @@ def chains_job(dev, spec) -> dict:
     """``MultiChainTrainer`` over the whole ``leaves``: ``iters``
     iterations, then (``spec["moments"]``: test_len, seed, optionally its
     own ``capture``) the chains' ``multichain_moments``.  Returns the
-    whole trace and state, the moments, this process's rollout launches
-    and the recursion's and thinning's replays, with ``spec["timed"]``
-    (iterations)
-    ``_timed_iters``'s numbers, and ``_capture_checks``'."""
+    whole trace and state, the training seconds, the moments, this
+    process's rollout launches and the recursion's and thinning's
+    replays, with ``moments["check_plain"]`` each launch's largest
+    difference from the plain rollout on the same inputs and seed, with
+    ``spec["timed"]`` (iterations) ``_timed_iters``'s numbers, and
+    ``_capture_checks``'."""
     from ffvd_tpu_torch.eval.ensemble import multichain_moments
     from ffvd_tpu_torch.ops import rollout as ro
     from ffvd_tpu_torch.parallel.sharding import (MultiChainTrainer,
                                                   gather_chain_state)
+    from ffvd_tpu_torch.utils.graphs import graph_stats
     dtype = DTYPES[spec.get("dtype", "float64")]
     mesh = _mesh(spec)
     mct, params = _chain_trainer(dev, spec, mesh)
@@ -236,8 +273,11 @@ def chains_job(dev, spec) -> dict:
     state = mct.init_state(params)
     gen = _generator(dev, spec.get("seed", 0))
     draws = _to(spec.get("draws"), dev, dtype)
+    _sync(dev)
+    t0 = time.perf_counter()
     state, trace = _train(mct, state, spec, gen, draws)
-    out = {"trace": _cpu(trace)}
+    _sync(dev)
+    out = {"trace": _cpu(trace), "train_s": time.perf_counter() - t0}
     whole = state if mesh is None else gather_chain_state(state, mesh)
     out["state"] = _state_dict(whole)
     capture = _run_capture(spec)
@@ -245,11 +285,21 @@ def chains_job(dev, spec) -> dict:
         mo = spec["moments"]
         ro.rollout.log.clear()
         ro.rollout.launches = 0
-        calls, batched = [], ro.rollout_batched
+        calls, plain_err, batched = [], [], ro.rollout_batched
 
         def spy(**kw):      # (rows, row_offset) of every call, either device
             calls.append((kw["x0"].shape[0], kw.get("row_offset", 0)))
-            return batched(**kw)
+            if not mo.get("check_plain"):
+                return batched(**kw)
+            g = kw["generator"]
+            twin = torch.Generator(device=g.device)
+            twin.set_state(g.get_state())
+            xs, vs = batched(**kw)
+            xr, vr = ro.rollout_reference_batched(**{**kw,
+                                                     "generator": twin})
+            plain_err.append(max(float((xs - xr).abs().max()),
+                                 float((vs - vr).abs().max())))
+            return xs, vs
 
         ro.rollout_batched = spy
         try:
@@ -265,11 +315,11 @@ def chains_job(dev, spec) -> dict:
         out["rollout_calls"] = calls
         out["launches"] = ro.rollout.launches
         out["launch_rows"] = [rows for rows, _ in ro.rollout.log]
+        out["plain_max_abs_err"] = plain_err
         for key, attr in (("rollout_replays", "_rollout_graph"),
                           ("thin_replays", "_thin_graph")):
-            g = getattr(mct, attr, None)
-            out[key] = (None if g is None or not g.graph.captured
-                        else g.graph.replays)
+            st = graph_stats(mct, attr)
+            out[key] = st["replays"] if st and st["captured"] else None
         if mo.get("check_whole") and mesh is not None:
             # The same moments of the gathered state in one launch of all
             # C×S rows (a comparison, after the counts were read).
@@ -298,10 +348,10 @@ def datasets_job(dev, spec) -> dict:
     mdt, params, lens = _dataset_trainer(dev, spec, mesh)
     state = mdt.init_state(params)
     gen = _generator(dev, spec.get("seed", 0))
+    _sync(dev)
     t0 = time.perf_counter()
     state, trace = _train(mdt, state, spec, gen, None)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _sync(dev)
     train_s = time.perf_counter() - t0
     out = {"trace": _cpu(trace), "train_s": train_s,
            **_capture_checks(mdt, state, spec, gen, dev)}
@@ -420,15 +470,22 @@ def checkpoint_job(dev, spec) -> dict:
 
     ``spec["mode"]`` "resume": ``run_with_checkpoints`` to iteration
     ``spec["first"]``, a restore into a fresh ``init_state`` with a
-    generator of another seed, then on to ``iters``.  "restore": a restore
-    of checkpoint ``spec["first"]`` into a fresh state, then on to
-    ``iters``.  ``spec["rank_seeds"]``: each process seeds its generator
-    with seed + rank.  Returns the trace of the iterations run after
-    the restore (with those before it in "resume"), the whole state at the
+    generator of another seed, then on to ``iters``.  "full": after 3
+    untimed iterations, ``run`` to ``iters`` uninterrupted, then
+    ``run_with_checkpoints`` to ``iters`` saving every ``first``, each
+    from a fresh state and timed, then the same restore of checkpoint
+    ``first`` and on to ``iters``.  "restore": a restore of checkpoint
+    ``spec["first"]`` into a fresh state, then on to ``iters``.
+    ``spec["rank_seeds"]``: each process seeds its generator with seed +
+    rank.  Returns the trace of the iterations run after the restore
+    (with those before it in "resume" and "full"), the whole state at the
     end and right after the restore ("restored"), and the directory's
-    files once the run is over."""
+    files once the run is over; with the trace, whole state, seconds and
+    replays of the "checkpointed" call (and in "full" of the
+    "uninterrupted" one)."""
     from ffvd_tpu_torch.utils.checkpoint import (CheckpointManager,
                                                  run_with_checkpoints)
+    from ffvd_tpu_torch.utils.graphs import graph_stats
     mesh = _mesh(spec)
     tr, params = {"chains": _chain_trainer, "datasets": _dataset_trainer,
                   "sequence": _sequence_trainer}[spec["trainer"]](
@@ -441,15 +498,31 @@ def checkpoint_job(dev, spec) -> dict:
     if spec.get("rank_seeds"):
         seed += torch.distributed.get_rank()
     mgr = CheckpointManager(spec["dir"], max_to_keep=spec.get("keep", 3))
-    traces = []
-    if spec["mode"] == "resume":
-        _, trace = run_with_checkpoints(tr, tr.init_state(params),
-                                        spec["first"], mgr,
-                                        every=spec["first"],
-                                        generator=_generator(dev, seed))
-        traces.append(trace)
+    first, out, traces = spec["first"], {}, []
+
+    def timed(key, fn, *args, **kw):
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, trace = fn(*args, generator=_generator(dev, seed), **kw)
+        _sync(dev)
+        st = graph_stats(tr)
+        out[key] = {"trace": _cpu(trace), "state": whole(state),
+                    "seconds": time.perf_counter() - t0,
+                    "replays": st["replays"] if st and st["captured"]
+                    else None}
+        return trace
+
+    if spec["mode"] == "full":
+        # Communicators, handles and workspaces first, untimed.
+        tr.run(tr.init_state(params), 3, generator=_generator(dev, seed))
+        timed("uninterrupted", tr.run, tr.init_state(params), spec["iters"])
+    if spec["mode"] in ("resume", "full"):
+        upto = first if spec["mode"] == "resume" else spec["iters"]
+        traces.append(timed("checkpointed", run_with_checkpoints, tr,
+                            tr.init_state(params), upto, mgr,
+                            every=first)[:first])
     gen = _generator(dev, seed + 1000)
-    state = mgr.restore(tr.init_state(params), step=spec["first"],
+    state = mgr.restore(tr.init_state(params), step=first,
                         generator=gen, trainer=tr)
     # A copy: on the CPU the one-process state dict holds the live leaves.
     restored = {k: v.clone() for k, v in whole(state).items()}
@@ -458,7 +531,8 @@ def checkpoint_job(dev, spec) -> dict:
     traces.append(trace)
     return {"trace": _cpu(torch.cat(traces)), "state": whole(state),
             "restored": restored,
-            "files": sorted(p.name for p in mgr._dir.iterdir())}
+            "files": sorted(p.name for p in mgr._dir.iterdir()),
+            **out, **_capture_checks(tr, state, spec, gen, dev)}
 
 
 def raise_job(dev, spec) -> Optional[str]:

@@ -117,7 +117,8 @@ class SequenceShardedTrainer:
         """``Trainer.run`` on ``data`` (of the trainer's shapes), every
         process holding the whole ``state``.  Returns (state, nll_trace),
         the same on every process.  ``capture`` as in ``Trainer.run``: the
-        step all-reduces over 'sp', so it is captured only on NCCL
+        step all-reduces over 'sp', so by default it is captured on NCCL,
+        its graph living until this call returns, and runs eagerly on gloo
         (``inference.trainer.capture_rule``)."""
         if data.y.shape != self.trainer.data.y.shape:
             raise ValueError(f"data of {tuple(data.y.shape)} rows, the "

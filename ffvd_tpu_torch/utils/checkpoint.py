@@ -41,6 +41,7 @@ import torch.distributed as dist
 
 from ffvd_tpu_torch.inference.trainer import (TrainState,
                                               adam_steps_in_leaf_dtype)
+from ffvd_tpu_torch.utils.graphs import scoped
 
 CHECKPOINT_FORMAT = 1
 """Layout of a saved training state and the meaning of its generator
@@ -199,6 +200,7 @@ def _check_generators_agree(generator: Optional[torch.Generator],
             "so its checkpoint would not resume it")
 
 
+@scoped
 def run_with_checkpoints(trainer, state: TrainState, num_iterations: int,
                          manager: CheckpointManager, every: int = 500,
                          chunk_size: int = 500,
@@ -209,7 +211,9 @@ def run_with_checkpoints(trainer, state: TrainState, num_iterations: int,
     ``parallel`` trainer, or the ``trainer`` of a
     ``SequenceShardedTrainer``; a meshed one is run by every process of
     its mesh, and each save writes one file (``CheckpointManager.save``).
-    Returns (state, the trace of this call)."""
+    A step captured over NCCL is captured once for the whole call
+    (``utils.graphs.graph_scope``).  Returns (state, the trace of this
+    call)."""
     traces = []
     done = state.step
     while done < num_iterations:

@@ -37,15 +37,28 @@ that a graph captures, gloo's are host round trips that it cannot, so
 The eager warm-ups on the side stream reach every group the step uses,
 which creates each NCCL communicator before the capture.  What a meshed
 run sums or gathers after a step (the trace over 'dp', the rollouts over
-the world) runs outside the graphs, eagerly.  A graph that captured
-NCCL's all-reduces holds its communicators until it is freed, and a
-trainer keeps its graphs in a reference cycle: drop the trainer and run
-``gc.collect()`` before ``destroy_process_group``, or the groups' teardown
-waits for ever (``parallel.distributed.spawn_local``'s ranks do).
+the world) runs outside the graphs, eagerly.
+
+Lifetime.  An owner (a trainer) is the only holder of its graphs, and
+no graph refers back to it: the trainer comes into a step as an argument
+of each call, so dropping the trainer frees its graphs by reference
+counting alone.  A graph that captured NCCL's all-reduces holds its
+communicators until it is freed, and ``destroy_process_group`` waits for
+them.  So a trainer whose step all-reduces over NCCL
+(``Trainer.graphs_per_call``) keeps its graphs only for the outermost
+call that made them (``graph_scope``: ``Trainer.run``,
+``run_with_checkpoints``, ``thin_posterior``, ``collect_posterior``,
+``recursion_rollout``, ``multichain_moments``): within it a graph is
+captured once and replayed, and when it returns the graphs go and their
+counts stay (``graph_stats``).  A plain ``destroy_process_group`` then
+returns with the trainer alive.  Other graphs live as long as their
+trainer and serve its later calls.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import gc
 import time
 from typing import Callable, Optional, Tuple
@@ -60,6 +73,9 @@ WARMUP = 2
 # Iterations a training graph's static nll trace holds before ``run``
 # copies it out (JAX's default chunk).
 TRACE_CAP = 500
+# Where an owner keeps its graphs: the training step's, the thinning
+# sub-step's and the rollout recursion's.
+GRAPH_ATTRS = ("_graph", "_thin_graph", "_rollout_graph")
 
 
 def tree_map(fn: Callable, tree):
@@ -124,12 +140,14 @@ def train_fingerprint(trainer, state, generator) -> tuple:
 
 
 class StepGraph:
-    """``body(inputs)``, a step that works in place on tensors of fixed
-    address, run plainly (``capture=False``) or replayed from a CUDA graph.
-    Each call copies ``inputs`` (a tree of the first call's signature) into
-    the static buffers that ``body`` reads, then runs one step: the first
-    ``WARMUP`` calls eagerly on a side stream, the next captures the graph
-    and replays it, every later one replays it."""
+    """``body(inputs, *args)``, a step that works in place on tensors of
+    fixed address, run plainly (``capture=False``) or replayed from a CUDA
+    graph.  Each call copies ``inputs`` (a tree of the first call's
+    signature) into the static buffers that ``body`` reads, then runs one
+    step: the first ``WARMUP`` calls eagerly on a side stream, the next
+    captures the graph and replays it, every later one replays it.
+    ``args`` reach ``body`` on the calls that run it (the owner, which the
+    graph does not hold)."""
 
     def __init__(self, body: Callable, inputs, capture: bool,
                  generator: Optional[torch.Generator] = None):
@@ -154,49 +172,64 @@ class StepGraph:
     def captured(self) -> bool:
         return self.graph is not None
 
-    def __call__(self, inputs) -> None:
+    def stats(self) -> dict:
+        """The counts that outlive the graph (``release``)."""
+        return {"captured": self.captured, "replays": self.replays,
+                "capture_s": self.capture_s, "pool_bytes": self.pool_bytes}
+
+    def free(self) -> None:
+        """Free the captured graph and its memory pool now, whoever still
+        refers to this object."""
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
+
+    def __call__(self, inputs, *args) -> None:
         copy_into(self.static, inputs)
         if not self.capture:
-            self.body(self.static)
+            self.body(self.static, *args)
             return
         if self.graph is None:
             if self.stream is None:
                 self.stream = torch.cuda.Stream()
             if self.warm_left:
-                self._warm_up()
+                self._warm_up(args)
                 return
-            self._capture()
+            self._capture(args)
         self.graph.replay()
         self.replays += 1
 
-    def _warm_up(self) -> None:
+    def _warm_up(self, args) -> None:
         current = torch.cuda.current_stream()
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
-            self.body(self.static)
+            self.body(self.static, *args)
         current.wait_stream(self.stream)
         self.warm_left -= 1
 
-    def _capture(self) -> None:
+    def _capture(self, args) -> None:
         # MAGMA's Cholesky synchronises inside; cuSOLVER's does not.
         torch.backends.cuda.preferred_linalg_library("cusolver")
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
-        # An unreachable graph of an earlier capture is freed by the cyclic
-        # collector, and freeing it during this capture would end it: collect
-        # now, and not while capturing.
-        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
+        # Freeing a graph during a capture would end the capture.  The
+        # port's graphs sit in no reference cycle, so reference counting
+        # frees them where their owner lets go; the cyclic collector, which
+        # may free a graph that code outside the port holds in a cycle,
+        # stays off while capturing.
+        collecting = gc.isenabled()
         gc.disable()
         try:
             with torch.cuda.graph(graph, stream=self.stream):
-                self.body(self.static)
+                self.body(self.static, *args)
         finally:
-            gc.enable()
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize()
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved() - reserved
@@ -207,20 +240,21 @@ class TrainGraph:
     """``trainer.outer_step(state, generator, **draws)`` as a ``StepGraph``
     (captured on the card, plain on the CPU) whose nll goes into a static
     trace of ``TRACE_CAP`` rows at a device position: ``step`` runs one
-    iteration, ``flush`` copies out the rows filled since the last flush."""
+    iteration, ``flush`` copies out the rows filled since the last flush.
+    The trainer is an argument of ``step``: the graph does not hold it."""
 
     def __init__(self, trainer, state, generator, draws: dict,
                  capture: Optional[bool] = None):
-        self.trainer, self.state, self.generator = trainer, state, generator
+        self.state, self.generator = state, generator
         x = state.params.x
-        self.pos = torch.zeros(1, dtype=torch.int64, device=x.device)
-        self.trace = x.new_zeros((TRACE_CAP,) + tuple(trainer.lead))
+        pos = self.pos = torch.zeros(1, dtype=torch.int64, device=x.device)
+        trace = self.trace = x.new_zeros((TRACE_CAP,) + tuple(trainer.lead))
         self.filled = 0
 
-        def body(d):
+        def body(d, trainer):
             nll = trainer.outer_step(state, generator, **d)
-            self.trace.index_copy_(0, self.pos, nll.unsqueeze(0))
-            self.pos.add_(1)
+            trace.index_copy_(0, pos, nll.unsqueeze(0))
+            pos.add_(1)
 
         if capture is None:
             capture = trainer.capture_mode(state, None)
@@ -229,14 +263,14 @@ class TrainGraph:
         self.sig = signature(draws)
         self.fp = train_fingerprint(trainer, state, generator)
 
-    def step(self, draws: dict) -> Optional[torch.Tensor]:
-        """One iteration; returns the full trace first when it is full."""
+    def step(self, trainer, draws: dict) -> Optional[torch.Tensor]:
+        """One iteration of ``trainer``'s step; returns the full trace
+        first when it is full."""
         out = self.flush() if self.filled == TRACE_CAP else None
-        self.graph(draws)
+        self.graph(draws, trainer)
         self.filled += 1
         if not self.graph.captured:   # a warm-up may have made Adam's state
-            self.fp = train_fingerprint(self.trainer, self.state,
-                                        self.generator)
+            self.fp = train_fingerprint(trainer, self.state, self.generator)
         return out
 
     def flush(self) -> Optional[torch.Tensor]:
@@ -246,3 +280,55 @@ class TrainGraph:
         self.pos.zero_()
         self.filled = 0
         return out
+
+
+@contextlib.contextmanager
+def graph_scope(owner):
+    """The span of one call of the port that may make ``owner``'s graphs.
+    Scopes nest; when the outermost one ends (returning or raising), an
+    owner whose step all-reduces over NCCL (``owner.graphs_per_call``)
+    lets its graphs go (``release``).  A caller may open one around
+    several calls to capture once for all of them, and must close it
+    before ``destroy_process_group``."""
+    depth = owner.__dict__.get("_scope_depth", 0)
+    owner._scope_depth = depth + 1
+    try:
+        yield
+    finally:
+        owner._scope_depth = depth
+        if not depth and owner.graphs_per_call:
+            release(owner)
+
+
+def scoped(fn: Callable) -> Callable:
+    """``fn(owner, ...)`` inside ``graph_scope(owner)``."""
+    @functools.wraps(fn)
+    def call(owner, *args, **kw):
+        with graph_scope(owner):
+            return fn(owner, *args, **kw)
+    return call
+
+
+def release(owner) -> None:
+    """Drop ``owner``'s graphs (``GRAPH_ATTRS``) once the card has run
+    their last replays, keeping each one's ``StepGraph.stats`` for
+    ``graph_stats``.  Each captured graph is freed here (``StepGraph.
+    free``), even where a reference to it outlives the call (a frame kept
+    by a traceback or by a cycle that the collector has not reached)."""
+    gone = {a: owner.__dict__.pop(a) for a in GRAPH_ATTRS
+            if owner.__dict__.get(a) is not None}
+    if any(g.graph.captured for g in gone.values()):
+        torch.cuda.synchronize()
+    owner._released = {**owner.__dict__.get("_released", {}),
+                       **{a: g.graph.stats() for a, g in gone.items()}}
+    for g in gone.values():
+        g.graph.free()
+
+
+def graph_stats(owner, attr: str = "_graph") -> Optional[dict]:
+    """``StepGraph.stats`` of the last graph that ``owner`` kept under
+    ``attr``, live or released; None if it made none."""
+    g = owner.__dict__.get(attr)
+    if g is not None:
+        return g.graph.stats()
+    return owner.__dict__.get("_released", {}).get(attr)

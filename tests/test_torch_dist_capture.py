@@ -212,10 +212,12 @@ RULE_TABLE = [
     ("gloo", (1, 1, 4), "cuda", True, "'sp' on gloo"),
     ("nccl", (1, 1, 1), "cuda", None, CAPTURED),
     ("nccl", (4, 1, 1), "cuda", None, CAPTURED),
-    ("nccl", (2, 2, 1), "cuda", None, EAGER),
+    ("nccl", (2, 2, 1), "cuda", None, CAPTURED),
+    ("nccl", (2, 2, 1), "cpu", None, EAGER),
     ("nccl", (2, 2, 1), "cuda", True, CAPTURED),
     ("nccl", (2, 2, 1), "cuda", False, EAGER),
-    ("nccl", (1, 1, 4), "cuda", None, EAGER),
+    ("nccl", (1, 1, 4), "cuda", None, CAPTURED),
+    ("nccl", (1, 1, 4), "cpu", None, EAGER),
     ("nccl", (1, 1, 4), "cuda", True, CAPTURED),
     ("nccl", (1, 4, 1), "cpu", True, "CUDA device"),
 ]
