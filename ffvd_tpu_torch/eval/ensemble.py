@@ -25,6 +25,7 @@ import torch.distributed as dist
 
 from ffvd_tpu_torch.model.likelihoods import use_full_r
 from ffvd_tpu_torch.utils.graphs import scoped
+from ffvd_tpu_torch.utils.profiling import span, spanned
 
 Chain = Tuple[np.ndarray, np.ndarray, np.ndarray]  # y_s (S,T,P), v_s, r2 (P,)
 
@@ -102,6 +103,7 @@ def ensemble_evaluate(models: List, horizon: int = 30,
 
 
 @torch.no_grad()
+@spanned("ffvd::eval")
 @scoped
 def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
                        spacing: Optional[int] = None,
@@ -164,34 +166,49 @@ def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
     num = num or cfg.num_posterior_samples
     spacing = spacing or cfg.posterior_sample_spacing
     r0, r1 = c0 * num, (c0 + c) * num       # this process's rows
-    controls = rollout_controls(mct.data, test_len)
-    capture = mct.capture_mode(state, capture)
     x = state.params.x
     d = x.shape[-1]
-    if mct.has_sghmc:
-        samples, state = thin_posterior(mct, state, num, spacing,
-                                        thin_generator, thin_noise,
-                                        thin_prop, capture)
-        samples = [mct.whole_dims(p) for p in samples]
-        rows = [member(samples[s], i) for i in range(c) for s in range(num)]
-    else:
-        full = mct.whole_dims(state.params)
-        rows = [member(full, i) for i in range(c)]
     # One process of an 'ep' group rolls its chains out.
     launch = axis_index(mesh, "ep") == 0
-    if cfg.kernel_type != "SquaredExponential" or cfg.n_layers > 1:
-        n_hidden = len(state.params.hidden)
-        if noise is None:
-            noise = hidden_normals(1, (c_all, num, test_len), d, generator,
-                                   x.dtype, x.device)[0]
-        if hidden_noise is None and n_hidden:
-            hidden_noise = hidden_normals(n_hidden, (c_all * num, test_len),
-                                          d, generator, x.dtype, x.device)
-        hidden_noise = [e.reshape(c_all * num, test_len, d)[r0:r1]
-                        for e in hidden_noise or ()]
-        noise = noise.reshape(c_all * num, test_len, d)[r0:r1]
-        # Groups of rows sharing a set: S a chain (iid), or one (thinned).
-        groups = (len(rows), (c * num) // len(rows), test_len, d)
+    recursion = cfg.kernel_type != "SquaredExponential" or cfg.n_layers > 1
+    with span("ffvd::eval.prep"):
+        controls = rollout_controls(mct.data, test_len)
+        capture = mct.capture_mode(state, capture)
+        if mct.has_sghmc:
+            samples, state = thin_posterior(mct, state, num, spacing,
+                                            thin_generator, thin_noise,
+                                            thin_prop, capture)
+            samples = [mct.whole_dims(p) for p in samples]
+            rows = [member(samples[s], i) for i in range(c)
+                    for s in range(num)]
+        else:
+            full = mct.whole_dims(state.params)
+            rows = [member(full, i) for i in range(c)]
+        if recursion:
+            n_hidden = len(state.params.hidden)
+            if noise is None:
+                noise = hidden_normals(1, (c_all, num, test_len), d,
+                                       generator, x.dtype, x.device)[0]
+            if hidden_noise is None and n_hidden:
+                hidden_noise = hidden_normals(
+                    n_hidden, (c_all * num, test_len), d, generator, x.dtype,
+                    x.device)
+            hidden_noise = [e.reshape(c_all * num, test_len, d)[r0:r1]
+                            for e in hidden_noise or ()]
+            noise = noise.reshape(c_all * num, test_len, d)[r0:r1]
+            # Groups of rows sharing a set: S a chain (iid), or one
+            # (thinned).
+            groups = (len(rows), (c * num) // len(rows), test_len, d)
+        elif launch:
+            inp = posterior_inputs(mct, rows)
+            if len(rows) == c:                    # iid: S rows a chain
+                rep = lambda t: (None if t is None
+                                 else t.repeat_interleave(num, dim=0))
+                kp = inp.pop("kparams")
+                inp = {k: rep(v) for k, v in inp.items()}
+                inp["kparams"] = KernelParams(rep(kp.log_variance),
+                                              rep(kp.log_lengthscales))
+    if recursion:
         if launch:
             xs, vs = recursion_rollout(
                 mct, stack_members(rows), controls, noise.reshape(groups),
@@ -199,37 +216,34 @@ def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
             xs = xs.reshape(c * num, test_len, d)
             vs = vs.reshape(c * num, test_len, d)
     elif launch:
-        inp = posterior_inputs(mct, rows)
-        if len(rows) == c:                        # iid: S rows a chain
-            rep = lambda t: (None if t is None
-                             else t.repeat_interleave(num, dim=0))
-            kp = inp.pop("kparams")
-            inp = {k: rep(v) for k, v in inp.items()}
-            inp["kparams"] = KernelParams(rep(kp.log_variance),
-                                          rep(kp.log_lengthscales))
         xs, vs = rollout_ops.rollout_batched(
             controls=controls, generator=generator, row_offset=r0,
             noise=None if noise is None
             else noise.reshape(c_all * num, test_len, d)[r0:r1], **inp)
     elif noise is None:
         rollout_ops.draw_seed(generator)          # the launch's seed
-    emission = {k: state.params.leaves()[k] for k in ("c", "d", "log_rchol")}
-    if mesh is not None:
-        # Every process's rows, and every chain's emission parameters.
-        xs_all = x.new_zeros((2, c_all * num, test_len, d))
-        if launch:
-            xs_all[0, r0:r1], xs_all[1, r0:r1] = xs, vs
-        xs, vs = all_sum_flat([xs_all], dist.group.WORLD)[0]
-        emission = gather_leaves(emission, mct.place, mesh)
-    xs = xs.reshape(c_all, num, test_len, d)
-    vs = vs.reshape(c_all, num, test_len, d)
-    full_r = use_full_r(cfg.emission_noise, emission["c"].shape[-1])
-    p0 = member(state.params, 0)
-    chains = []
-    for i in range(c_all):
-        p = dataclasses.replace(p0, **{k: v[i] for k, v in emission.items()})
-        chains.append((_f64(xs[i] @ p.c + p.d), _f64(vs[i] @ (p.c * p.c)),
-                       _f64(p.r_var_diag if full_r else p.rchol_diag ** 2)))
+    with span("ffvd::eval.moments"):
+        emission = {k: state.params.leaves()[k]
+                    for k in ("c", "d", "log_rchol")}
+        if mesh is not None:
+            # Every process's rows, and every chain's emission parameters.
+            xs_all = x.new_zeros((2, c_all * num, test_len, d))
+            if launch:
+                xs_all[0, r0:r1], xs_all[1, r0:r1] = xs, vs
+            xs, vs = all_sum_flat([xs_all], dist.group.WORLD)[0]
+            emission = gather_leaves(emission, mct.place, mesh)
+        xs = xs.reshape(c_all, num, test_len, d)
+        vs = vs.reshape(c_all, num, test_len, d)
+        full_r = use_full_r(cfg.emission_noise, emission["c"].shape[-1])
+        p0 = member(state.params, 0)
+        chains = []
+        for i in range(c_all):
+            p = dataclasses.replace(p0, **{k: v[i]
+                                           for k, v in emission.items()})
+            chains.append((_f64(xs[i] @ p.c + p.d),
+                           _f64(vs[i] @ (p.c * p.c)),
+                           _f64(p.r_var_diag if full_r
+                                else p.rchol_diag ** 2)))
     return chains, state
 
 

@@ -70,6 +70,7 @@ from ffvd_tpu_torch.ops import rollout as rollout_ops
 from ffvd_tpu_torch.ops.kernels import KernelParams
 from ffvd_tpu_torch.parallel.sharding import no_vmap_fallback, stack_members
 from ffvd_tpu_torch.utils import graphs
+from ffvd_tpu_torch.utils.profiling import span, spanned
 
 
 def _ds64(cfg) -> bool:
@@ -161,6 +162,7 @@ class _ThinGraph:
             self.sstate.assign_(sstate)
 
 
+@spanned("ffvd::eval.thin")
 @graphs.scoped
 def thin_posterior(trainer: Trainer, state: TrainState, num: int,
                    spacing: int, generator: Optional[torch.Generator] = None,
@@ -385,6 +387,7 @@ class _RolloutGraph:
         return self.xs.clone(), self.vs.clone()
 
 
+@spanned("ffvd::eval.rollout")
 @graphs.scoped
 def recursion_rollout(trainer: Trainer, params: GPSSMParams,
                       controls: torch.Tensor, noise: torch.Tensor,
@@ -432,6 +435,7 @@ def recursion_rollout(trainer: Trainer, params: GPSSMParams,
 
 
 @torch.no_grad()
+@spanned("ffvd::eval")
 @graphs.scoped
 def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
                       num: Optional[int] = None,
@@ -461,19 +465,20 @@ def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
     Returns (predict_x (S, T, D), predict_x_var (S, T, D), the state with
     the moved chain)."""
     cfg = trainer.cfg
-    num = num or cfg.num_posterior_samples
-    capture = trainer.capture_mode(state, capture)
-    controls = rollout_controls(trainer.data, test_len)
-    x = state.params.x
-    recursion = (cfg.kernel_type != "SquaredExponential"
-                 or cfg.n_layers > 1)
-    if recursion and noise is None:
-        noise = hidden_normals(1, (num, test_len), x.shape[1], generator,
-                               x.dtype, x.device)[0]
-    if recursion and hidden_noise is None and state.params.hidden:
-        hidden_noise = hidden_normals(len(state.params.hidden),
-                                      (num, test_len), x.shape[1],
-                                      generator, x.dtype, x.device)
+    with span("ffvd::eval.prep"):
+        num = num or cfg.num_posterior_samples
+        capture = trainer.capture_mode(state, capture)
+        controls = rollout_controls(trainer.data, test_len)
+        x = state.params.x
+        recursion = (cfg.kernel_type != "SquaredExponential"
+                     or cfg.n_layers > 1)
+        if recursion and noise is None:
+            noise = hidden_normals(1, (num, test_len), x.shape[1], generator,
+                                   x.dtype, x.device)[0]
+        if recursion and hidden_noise is None and state.params.hidden:
+            hidden_noise = hidden_normals(len(state.params.hidden),
+                                          (num, test_len), x.shape[1],
+                                          generator, x.dtype, x.device)
     if trainer.has_sghmc:
         samples, state = thin_posterior(
             trainer, state, num, cfg.posterior_sample_spacing,
@@ -483,7 +488,8 @@ def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
                 trainer, stack_members(samples), controls, noise[:, None],
                 [e[:, None] for e in hidden_noise or ()], capture=capture)
             return xs[:, 0], vs[:, 0], state
-        inp = posterior_inputs(trainer, samples)
+        with span("ffvd::eval.prep"):
+            inp = posterior_inputs(trainer, samples)
         xs, vs = rollout_ops.rollout_batched(
             controls=controls, noise=noise, generator=generator, **inp)
         return xs, vs, state
@@ -491,8 +497,9 @@ def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
     if recursion:
         return (*recursion_rollout(trainer, params, controls, noise,
                                    hidden_noise, capture=capture), state)
-    pre = rollout_precal(cfg, params)
-    u_val, q_sqrt = u_and_qsqrt(trainer, params, trainer.data, pre)
+    with span("ffvd::eval.prep"):
+        pre = rollout_precal(cfg, params)
+        u_val, q_sqrt = u_and_qsqrt(trainer, params, trainer.data, pre)
     xs, vs = rollout_ops.rollout(
         params.kernel, params.z, pre.lm_inv, u_val, q_sqrt, params.q,
         params.x[-1], controls, num, noise=noise, generator=generator)

@@ -634,25 +634,29 @@ class Trainer:
         NCCL, whose graph lives until this call returns; it runs eagerly
         on gloo and on the CPU.  True raises where it cannot capture;
         False runs ``outer_step`` eagerly.  Both give the same numbers."""
-        capture = self.capture_mode(state, capture)
-        draws = iter(draws) if draws is not None else None
-        traces = []
-        done = 0
-        while done < num_iterations:
-            n = min(chunk_size, num_iterations - done)
-            if capture:
-                nlls = self._replay(state, generator, draws, n, True)
-            else:
-                nlls = torch.stack([
-                    self.outer_step(state, generator,
-                                    **(next(draws) if draws is not None
-                                       else {}))
-                    for _ in range(n)])
-            nlls = self._gather_trace(nlls)
-            if nan_check and not bool(torch.isfinite(nlls).all()):
-                self._raise_non_finite(nlls, done, state)
-            traces.append(nlls)
-            done += n
+        # utils/ imports this module
+        from ffvd_tpu_torch.utils.profiling import span
+        with span("ffvd::train.run"):
+            capture = self.capture_mode(state, capture)
+            draws = iter(draws) if draws is not None else None
+            traces = []
+            done = 0
+            while done < num_iterations:
+                n = min(chunk_size, num_iterations - done)
+                if capture:
+                    nlls = self._replay(state, generator, draws, n, True)
+                else:
+                    nlls = torch.stack([
+                        self.outer_step(state, generator,
+                                        **(next(draws) if draws is not None
+                                           else {}))
+                        for _ in range(n)])
+                with span("ffvd::train.read"):
+                    nlls = self._gather_trace(nlls)
+                    if nan_check and not bool(torch.isfinite(nlls).all()):
+                        self._raise_non_finite(nlls, done, state)
+                traces.append(nlls)
+                done += n
         if not traces:
             return state, torch.zeros((0,) + self._whole_lead(),
                                       dtype=state.params.x.dtype,
@@ -675,25 +679,28 @@ class Trainer:
         trainer, captured again when the state, the generator, the draws'
         shapes or ``capture`` (``capture_mode``'s; False: the same step
         run plainly) change, and kept as ``graph_scope`` says."""
-        from ffvd_tpu_torch.utils import graphs   # utils/ imports this module
+        # utils/ imports this module
+        from ffvd_tpu_torch.utils import graphs
+        from ffvd_tpu_torch.utils.profiling import span
         capture = self.capture_mode(state, capture)
         dev = state.params.x.device
         g = getattr(self, "_graph", None)
-        fp = graphs.train_fingerprint(self, state, generator)
-        parts = []
-        for _ in range(n):
-            d = graphs.to_device(next(draws) if draws is not None else {},
-                                 dev, self._whole_lead() or (1,))
-            if g is None or g.fp != fp or g.sig != graphs.signature(d) \
-                    or g.graph.capture != capture:
-                if g is not None:
-                    parts.append(g.flush())
-                g = self._graph = graphs.TrainGraph(self, state, generator, d,
-                                                    capture)
-            parts.append(g.step(self, d))
-            fp = g.fp       # a warm-up may have given Adam its moments
-        parts.append(g.flush())
-        return torch.cat([p for p in parts if p is not None])
+        with span("ffvd::train.replay"):
+            fp = graphs.train_fingerprint(self, state, generator)
+            parts = []
+            for _ in range(n):
+                d = graphs.to_device(next(draws) if draws is not None else {},
+                                     dev, self._whole_lead() or (1,))
+                if g is None or g.fp != fp or g.sig != graphs.signature(d) \
+                        or g.graph.capture != capture:
+                    if g is not None:
+                        parts.append(g.flush())
+                    g = self._graph = graphs.TrainGraph(self, state,
+                                                        generator, d, capture)
+                parts.append(g.step(self, d))
+                fp = g.fp   # a warm-up may have given Adam its moments
+            parts.append(g.flush())
+            return torch.cat([p for p in parts if p is not None])
 
     def _raise_non_finite(self, nlls: torch.Tensor, done: int,
                           state: TrainState):

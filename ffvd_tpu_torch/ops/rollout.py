@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ffvd_tpu_torch.ops.kernels import KernelParams
+from ffvd_tpu_torch.utils.profiling import spanned
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -380,6 +381,7 @@ def _kernel_arg(name: str, t: Optional[torch.Tensor]):
     return t.data_ptr()
 
 
+@spanned("ffvd::eval.rollout")
 def rollout(kparams: KernelParams, z: torch.Tensor, lm_inv: torch.Tensor,
             u_val: torch.Tensor, q_sqrt: Optional[torch.Tensor],
             q: torch.Tensor, x0: torch.Tensor, controls: torch.Tensor,
@@ -408,6 +410,7 @@ def rollout(kparams: KernelParams, z: torch.Tensor, lm_inv: torch.Tensor,
                    num_samples, noise, generator, row_offset, batched=False)
 
 
+@spanned("ffvd::eval.rollout")
 def rollout_batched(kparams: KernelParams, z: torch.Tensor,
                     lm_inv: torch.Tensor, u_val: torch.Tensor,
                     q_sqrt: Optional[torch.Tensor], q: torch.Tensor,

@@ -38,6 +38,8 @@ from typing import Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ffvd_tpu_torch.utils.profiling import span
+
 # Seconds a collective may wait for the other ranks before it raises.
 GROUP_TIMEOUT = 300.0
 
@@ -156,7 +158,7 @@ COLLECTIVE_LABEL = "ffvd::all_sum"
 def all_sum(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` summed over ``group``, in place (no autograd)."""
     if not _trivial(group):
-        with torch.profiler.record_function(COLLECTIVE_LABEL):
+        with span(COLLECTIVE_LABEL):
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 

@@ -28,6 +28,7 @@ from ffvd_tpu_torch.model.params import (GPSSMParams, SSMData,
 from ffvd_tpu_torch.parallel.distributed import all_sum
 from ffvd_tpu_torch.parallel.sharding import (MeshBatchedTrainer, axis_index,
                                               member, stack_members)
+from ffvd_tpu_torch.utils.profiling import span, spanned
 
 
 def pad_dataset(data: SSMData, params: GPSSMParams, n_pad: int
@@ -119,6 +120,7 @@ class MultiDatasetTrainer(MeshBatchedTrainer):
                          data_axis=True, mesh=mesh, pg_fn=pg_fn)
 
     @torch.no_grad()
+    @spanned("ffvd::eval")
     def evaluate(self, state: TrainState, datasets, lens,
                  generator: Optional[torch.Generator] = None,
                  horizon: int = 30, thin_generator=None, noise=None):
@@ -156,31 +158,38 @@ class MultiDatasetTrainer(MeshBatchedTrainer):
             return [torch.Generator(device=g.device).manual_seed(
                 draw_seed(g)) for _ in datasets]
 
-        gens, thin_gens = per_dataset(generator), per_dataset(thin_generator)
-        params = self.whole_dims(state.params)
-        dt, dev = params.x.dtype, params.x.device
-        as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
-        m0, m1 = self.place.members
-        # (rmse, nll) of every dataset; each filled by one process.
-        table = torch.zeros((len(datasets), 2), dtype=torch.float64,
-                            device=dev)
+        with span("ffvd::eval.prep"):
+            gens = per_dataset(generator)
+            thin_gens = per_dataset(thin_generator)
+            params = self.whole_dims(state.params)
+            dt, dev = params.x.dtype, params.x.device
+            as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+            m0, m1 = self.place.members
+            # (rmse, nll) of every dataset; each filled by one process.
+            table = torch.zeros((len(datasets), 2), dtype=torch.float64,
+                                device=dev)
         for i in (range(m0, min(m1, len(datasets)))
                   if axis_index(self.mesh, "ep") == 0 else ()):
             ds, n = datasets[i], lens[i]
-            p = member(params, i - m0)
-            p = dataclasses.replace(p, x=p.x[:n + 1])
-            tr = Trainer(self.cfg, SSMData(y=as_t(ds.y_train),
-                                           control=as_t(ds.control)))
+            with span("ffvd::eval.build"):
+                p = member(params, i - m0)
+                p = dataclasses.replace(p, x=p.x[:n + 1])
+                tr = Trainer(self.cfg, SSMData(y=as_t(ds.y_train),
+                                               control=as_t(ds.control)))
+                start = tr.init_state(p)
             xs, vs, _ = collect_posterior(
-                tr, tr.init_state(p), ds.n_test, generator=gens[i],
+                tr, start, ds.n_test, generator=gens[i],
                 thin_generator=thin_gens[i],
                 noise=None if noise is None else noise[i])
-            py, pv, _ = predict_summary(p, xs, vs, self.cfg.emission_noise)
-            rmse, nll = rmse_nll(as_t(ds.y_test), py, pv, ds.y_train_std,
-                                 horizon=horizon)
-            table[i, 0], table[i, 1] = float(rmse), float(nll)
-        if self.mesh is not None:
-            all_sum(table, dist.group.WORLD)
-        return {ds.name: {"rmse": float(table[i, 0]),
-                          "nll": float(table[i, 1])}
-                for i, ds in enumerate(datasets)}
+            with span("ffvd::eval.moments"):
+                py, pv, _ = predict_summary(p, xs, vs,
+                                            self.cfg.emission_noise)
+                rmse, nll = rmse_nll(as_t(ds.y_test), py, pv,
+                                     ds.y_train_std, horizon=horizon)
+                table[i, 0], table[i, 1] = float(rmse), float(nll)
+        with span("ffvd::eval.moments"):
+            if self.mesh is not None:
+                all_sum(table, dist.group.WORLD)
+            return {ds.name: {"rmse": float(table[i, 0]),
+                              "nll": float(table[i, 1])}
+                    for i, ds in enumerate(datasets)}

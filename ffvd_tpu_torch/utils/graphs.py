@@ -66,6 +66,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ffvd_tpu_torch.utils.profiling import spanned
+
 # Eager iterations before the capture: the first creates Adam's moments and
 # the libraries' handles and workspaces on the side stream, the second runs
 # with all of them in place.
@@ -199,6 +201,7 @@ class StepGraph:
         self.graph.replay()
         self.replays += 1
 
+    @spanned("ffvd::graph.warmup")
     def _warm_up(self, args) -> None:
         current = torch.cuda.current_stream()
         self.stream.wait_stream(current)
@@ -207,6 +210,7 @@ class StepGraph:
         current.wait_stream(self.stream)
         self.warm_left -= 1
 
+    @spanned("ffvd::graph.capture")
     def _capture(self, args) -> None:
         # MAGMA's Cholesky synchronises inside; cuSOLVER's does not.
         torch.backends.cuda.preferred_linalg_library("cusolver")

@@ -3,19 +3,45 @@
 Counterpart of ``ffvd_tpu/utils/profiling.py``.  The reference's only
 tracing is commented-out ``time.time()`` probes (models.py:141-197) feeding
 a ``running_time_seq`` saved into the results npz (base_model.py:516).
-Here: a ``torch.profiler`` trace written as a Chrome trace, a summary of a
-profiled window (device busy share, kernels and host syncs per iteration,
-device time by op and by kernel class), a section timer that fills a
-``running_time_seq``-compatible list, and a throughput meter.
+Here: a ``torch.profiler`` trace written as a Chrome trace, the port's
+spans, and a summary of a profiled window (device busy share, kernels and
+host syncs per iteration, device time by op and by kernel class).
+
+The spans are ``torch.profiler`` ranges, so a trace puts them on the
+profiler's clock beside the card's kernels and the CUDA runtime calls.
+``span`` opens one only while a profiler records; otherwise it returns a
+shared null context.  Each is opened once a call, chunk, build, stage or
+launch, never once an iteration, a kernel or a chain:
+
+- ``ffvd::train.run``: ``Trainer.run``, a call;
+- ``ffvd::train.replay``: ``Trainer._replay``'s host loop of a chunk's
+  replays;
+- ``ffvd::train.read``: a chunk's trace gathered and read for the NaN
+  check;
+- ``ffvd::graph.warmup``, ``ffvd::graph.capture``: ``StepGraph``'s eager
+  warm-ups and its capture;
+- ``ffvd::eval``: one evaluation (``multichain_moments``,
+  ``MultiDatasetTrainer.evaluate``, ``collect_posterior``);
+- ``ffvd::eval.build``: ``MultiDatasetTrainer.evaluate``'s trainer and
+  state of a dataset;
+- ``ffvd::eval.thin``: ``thin_posterior``;
+- ``ffvd::eval.prep``: what an evaluation does before its rollout (the
+  members' rows, the Kmm factors, q(U), the kernel's inputs);
+- ``ffvd::eval.rollout``: a rollout launch (``ops.rollout.rollout``,
+  ``rollout_batched``) or ``recursion_rollout``;
+- ``ffvd::eval.moments``: what follows the rollout (the emission moments,
+  the scores and their host copies);
+- ``ffvd::all_sum``: a collective (``parallel.distributed.all_sum``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import re
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict
 
 import torch
 
@@ -38,41 +64,27 @@ def trace(logdir: str = "ffvd_trace"):
     prof.export_chrome_trace(str(Path(logdir) / "trace.json"))
 
 
-class SectionTimer:
-    """Accumulates wall-clock seconds per named section; ``running_time_seq``
-    mirrors the reference's results-npz field."""
-
-    def __init__(self):
-        self.sections = {}
-        self.running_time_seq: List[float] = []
-
-    @contextlib.contextmanager
-    def section(self, name: str, block_on=None):
-        """Time the block; ``block_on`` (a tensor, device or container of
-        tensors) is synchronised before the clock stops, so the card's
-        queued work is counted."""
-        t0 = time.perf_counter()
-        yield
-        if block_on is not None:
-            hard_sync(block_on)
-        dt = time.perf_counter() - t0
-        self.sections[name] = self.sections.get(name, 0.0) + dt
-        self.running_time_seq.append(dt)
+_OFF = contextlib.nullcontext()
 
 
-def throughput(fn, *args, iters_per_call: int = 1, warmup: int = 1,
-               repeats: int = 3):
-    """(iterations/s, s/call) of ``fn(*args)``, synchronised on its
-    output."""
-    for _ in range(warmup):
-        hard_sync(fn(*args))
-    t0 = time.perf_counter()
-    out = None
-    for _ in range(repeats):
-        out = fn(*args)
-    hard_sync(out)
-    per_call = (time.perf_counter() - t0) / repeats
-    return iters_per_call / per_call, per_call
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler records, else one shared null context: with no profiler a
+    span costs a flag check, not a range entered and left."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def spanned(name: str) -> Callable:
+    """Decorator: each call of the function runs inside ``span(name)``."""
+    def wrap(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 def _busy_us(events) -> float:

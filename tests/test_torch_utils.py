@@ -10,8 +10,7 @@ checkpoints, timing and profiling, held against the JAX package's
 - Checkpoints: a round trip, ``max_to_keep``, a resume that is bit-exact
   (``torch.equal``) against an uninterrupted run for C4, for C5 with its
   generator and for stacked chains, and a refused format.
-- ``hard_sync``, ``timed_ms``, ``in_program_ms``, ``SectionTimer``,
-  ``throughput`` and ``trace`` on the CPU.
+- ``hard_sync``, ``timed_ms``, ``in_program_ms`` and ``trace`` on the CPU.
 """
 
 import json
@@ -249,14 +248,6 @@ def test_timing_and_profiling_on_the_cpu(tmp_path):
     calls.clear()
     per = timing.in_program_ms(fn, a, k=4, n=2)
     assert np.isfinite(per) and len(calls) == 1 + 2 * (4 + 8)
-    st = profiling.SectionTimer()
-    for _ in range(2):
-        with st.section("mm", block_on=a):
-            fn(a)
-    assert len(st.running_time_seq) == 2
-    assert st.sections["mm"] == pytest.approx(sum(st.running_time_seq))
-    rate, per_call = profiling.throughput(fn, a, iters_per_call=10)
-    assert rate == pytest.approx(10 / per_call)
     with profiling.trace(str(tmp_path / "tr")) as prof:
         fn(a)
     assert (tmp_path / "tr" / "trace.json").exists()
