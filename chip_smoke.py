@@ -63,7 +63,8 @@ that each print one JSON line:
 4j. BASELINE config 5 in fp32: all six datasets at M=512 in one
    ``MultiDatasetTrainer`` step, 200 warm-up and 200 timed iterations,
    kernels, host syncs and device time by kernel class an iteration, then
-   ``evaluate()``: six launches on the global-memory plan;
+   ``evaluate()``: one grouped launch of the six datasets' 60 rows on the
+   global-memory plan;
 5e. the float64 collapsed segment, cuda against CPU: ``ds_collapsed_terms``
    at the ballbeam warm start in fp32 (values and gradients), and 3 ds64
    C4 iterations with fp64 leaves;
@@ -155,7 +156,10 @@ that each print one JSON line:
    the plain rollout;
 6. kernel timing with CUDA events at S=10 and S=64, shared and per-sample
    inputs, with the launch plan; fp32 at 80 per-sample rows and at M=512
-   (global plan); and one ``{"kernels": [...]}`` line.
+   (global plan); the six-dataset evaluation's grouped launch (10 rows of
+   each of the six test lengths, M=512, fp32) beside its six separate
+   launches, each group's rows bit-equal to its own launch; and one
+   ``{"kernels": [...]}`` line.
 
 Every training ``run``, thinning and LinearK or deep rollout above takes
 the default, a replayed CUDA graph on the card (a meshed step whose
@@ -1075,10 +1079,12 @@ def _time_runs(torch, trainer, log):
 def _spy_rollout_inputs(er, ro, seen):
     """Route ``eval.rollout``'s kernel calls through a recorder of the
     factors it passes; the real wrapper, and its launch count, run."""
+    import inspect
     import types
 
     def rollout(*args, **kw):
-        seen.update(lm_inv=args[2], q_sqrt=args[4])
+        got = inspect.signature(ro.rollout).bind(*args, **kw).arguments
+        seen.update(lm_inv=got["lm_inv"], q_sqrt=got["q_sqrt"])
         return ro.rollout(*args, **kw)
     er.rollout_ops = types.SimpleNamespace(
         rollout=rollout, rollout_batched=ro.rollout_batched)
@@ -1342,8 +1348,9 @@ def phase_six_datasets(torch, ro, card):
     ``bench.py:186-215``: all six datasets resized to M=512, padded to a
     common N with a mask, C4 in one ``MultiDatasetTrainer`` step; 200
     warm-up and 200 timed iterations; kernels, host syncs and device time
-    by kernel class of 10 profiled iterations; then ``evaluate()``: each
-    dataset one launch on the kernel's global-memory plan."""
+    by kernel class of 10 profiled iterations; then ``evaluate()``: one
+    grouped launch of every dataset's rows on the kernel's global-memory
+    plan."""
     from ffvd_tpu_torch.config import DATASETS, FFVDConfig
     from ffvd_tpu_torch.data import create_dataset
     from ffvd_tpu_torch.parallel import MultiDatasetTrainer, stack_datasets
@@ -1384,15 +1391,18 @@ def phase_six_datasets(torch, ro, card):
            "evaluate_ms": eval_ms, "results": res,
            "rollout_launches_fit": launches_fit,
            "rollout_launches_evaluate": launches_eval, "launches": log}
-    emit("six_datasets_m512", **out)
+    emit("six_datasets_m512", **out, rollout_groups=ro.rollout.last_groups)
     check(bool(torch.isfinite(warm).all() and torch.isfinite(timed_nll).all()),
           "six datasets: non-finite nll")
     check(all(float(a) > float(b) for a, b in zip(warm[0], timed_nll[-1])),
           f"six datasets: an nll did not decrease {out['nll_first']} -> "
           f"{out['nll_last']}")
-    check(launches_fit == 0 and launches_eval == 6
+    check(launches_fit == 0 and launches_eval == 1
+          and ro.rollout.last_groups == 6
+          and [e["rows"] for e in log] == [60]
           and all(not e["plan"]["resident"] for e in log),
-          f"six datasets: launches {launches_fit}/{launches_eval} {log}")
+          f"six datasets: launches {launches_fit}/{launches_eval} "
+          f"groups {ro.rollout.last_groups} {log}")
     check(all(math.isfinite(r["rmse"]) and math.isfinite(r["nll"])
               for r in res.values()), f"six datasets: {res}")
     return launches_fit + launches_eval
@@ -2519,7 +2529,10 @@ def _check_dp_ep(torch, ranks, singles, what, on_card=True):
         "train_s_20_iterations": [x["train_s"] for x in six],
         "nll_first": six[0]["trace"][0].tolist(),
         "nll_last": six[0]["trace"][-1].tolist()}
-    check(sum(x["launches"] for x in six) == (6 if on_card else 0)
+    # one grouped launch a 'dp' group (its 'ep'-index-0 rank, 3 datasets)
+    check(sum(x["launches"] for x in six) == (2 if on_card else 0)
+          and sorted(sum(rep["six_m512"]["launch_rows_by_rank"], []))
+          == ([30, 30] if on_card else [])
           and not any(rep["six_m512"]["resident"])
           and all(x["results"] == res for x in six)
           and all(math.isfinite(v["rmse"]) and math.isfinite(v["nll"])
@@ -3162,7 +3175,7 @@ def phase_examples_quick(torch, ro, card, device="cuda"):
     on_card = device == "cuda"
     check(all(v["printed"] for v in out.values())
           and (launches["01_quickstart"] >= 1) == on_card
-          and launches["02_all_datasets_one_jit"] == (6 if on_card else 0),
+          and launches["02_all_datasets_one_jit"] == (1 if on_card else 0),
           f"8d: examples: {out}")
     return launches
 
@@ -3501,10 +3514,84 @@ def phase_timing(torch, ro):
         "bytes": b512[3], "kernel_launches_timed": 20,
         "plain_calls_timed": 2, "plan": m512_plan._asdict()}
     check(not m512_plan.resident, f"M=512 fp32 plan: {m512_plan}")
+    out["fp32_m512_grouped_six"] = _grouped_six(torch, ro)
     emit("timing", shapes={"S": S, "T": T, "D": 4, "M": 100, "Din": 5},
          noise="in-kernel Philox", library="no single PyTorch call computes "
          "this rollout; library_ms is null", **out)
     return out
+
+
+def _grouped_six(torch, ro):
+    """The six-dataset evaluation's launch shape (phase 4j; the
+    benchmark's ``m512x6-eval``): 10 rows of each of the six test lengths
+    at M=512, fp32, each group with its own parameter set, controls and
+    generator, as one grouped launch and as six launches.  Each group's
+    rows must equal its own launch's bit for bit, zero past its length,
+    and the plain grouped version over the first HORIZON steps at phase
+    2's fp32 tolerance."""
+    from ffvd_tpu_torch.ops.kernels import KernelParams
+    launches = ro.rollout.launches
+    lens = (512, 500, 250, 500, 512, 148)
+    base = random_inputs(torch, torch.float32, 4, 512, max(lens))
+    sets = per_sample_inputs(torch, base, len(lens))
+    ctrl = [base["controls"][:t] for t in lens]
+    kp = sets["kparams"]
+    seeded = lambda: [torch.Generator().manual_seed(50 + g)
+                      for g in range(len(lens))]
+
+    def one(g, gen):
+        return ro.rollout(
+            KernelParams(kp.log_variance[g], kp.log_lengthscales[g]),
+            sets["z"][g], sets["lm_inv"][g], sets["u_val"][g],
+            sets["q_sqrt"][g], sets["q"][g], sets["x0"][g], ctrl[g], S,
+            generator=gen)
+
+    def grouped(gens, fn=ro.rollout_grouped):
+        return fn(kp, sets["z"], sets["lm_inv"], sets["u_val"],
+                  sets["q_sqrt"], sets["q"], sets["x0"], ctrl, S,
+                  generators=gens)
+
+    gx, gv = grouped(seeded())
+    plan, groups = ro.rollout.last_plan, ro.rollout.last_groups
+    sep = [one(g, gen) for g, gen in enumerate(seeded())]
+    px, pv = grouped(seeded(), ro.rollout_reference_grouped)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(gx[g, :, :t], x) and torch.equal(gv[g, :, :t], v)
+                 and not gx[g, :, t:].any() and not gv[g, :, t:].any())
+            for g, (t, (x, v)) in enumerate(zip(lens, sep))]
+    h = slice(0, HORIZON)
+    plain_close = bool(
+        torch.allclose(gx[:, :, h], px[:, :, h], rtol=1e-4, atol=1e-5)
+        and torch.allclose(gv[:, :, h], pv[:, :, h], rtol=1e-4, atol=1e-5)
+        and all(not px[g, :, t:].any() and not pv[g, :, t:].any()
+                for g, t in enumerate(lens)))
+    err = max(float((gx[:, :, h] - px[:, :, h]).abs().max()),
+              float((gv[:, :, h] - pv[:, :, h]).abs().max()))
+    gens = seeded()
+    six_ms = _time_ms(torch, lambda: [one(g, gen)
+                                      for g, gen in enumerate(gens)], 10)
+    grouped_ms = _time_ms(torch, lambda: grouped(gens), 20)
+    plain_ms = _time_ms(torch, lambda: grouped(
+        gens, ro.rollout_reference_grouped), 2)
+    ro.rollout.launches = launches   # timing launches are not the path's
+    bounds = [_bound("fp32", S, t, 4, 512, 5, 1, 4, with_noise_input=False)
+              for t in lens]
+    bound_ms = sum(b[0] for b in bounds)
+    rep = {"lengths": list(lens), "rows_per_group": S, "M": 512,
+           "groups": groups, "grouped_ms": grouped_ms,
+           "six_launches_ms": six_ms, "speedup": six_ms / grouped_ms,
+           "us_per_step_grouped": grouped_ms * 1e3 / max(lens),
+           "bound_ms": bound_ms, "bound_by": bounds[0][1],
+           "grouped_roofline_pct": 100 * bound_ms / grouped_ms,
+           "six_launches_roofline_pct": 100 * bound_ms / six_ms,
+           "bit_equal_by_group": same, "max_abs_err": err,
+           "plain_close": plain_close, "plain_ms": plain_ms,
+           "tolerance": f"rtol 1e-4, atol 1e-5, first {HORIZON} steps",
+           "grouped_launches_timed": 20, "six_launch_sets_timed": 10,
+           "plain_calls_timed": 2, "plan": plan._asdict()}
+    check(all(same) and plain_close and groups == len(lens)
+          and not plan.resident, f"grouped launch of six M=512 sets: {rep}")
+    return rep
 
 
 def _kernel_entry(timing, launches, max_abs_err, **extra):
@@ -3639,6 +3726,10 @@ def main() -> int:
                              ("ms", "plain_ms", "bound_ms", "bound_by")},
         fp32_m512_global={k: timing["fp32_m512_global"][k] for k in
                           ("ms", "plain_ms", "bound_ms", "bound_by")},
+        fp32_m512_grouped_six={k: timing["fp32_m512_grouped_six"][k]
+                               for k in ("grouped_ms", "six_launches_ms",
+                                         "plain_ms", "max_abs_err",
+                                         "bound_ms", "bound_by")},
         fp64={"ms": f64["ms"], "plain_ms": f64["plain_ms"],
               "bound_ms": f64["bound_ms"], "bound_by": f64["bound_by"],
               "max_abs_err": worst["fp64"], "plan": f64["plan"]},

@@ -15,16 +15,34 @@
 //
 // The parameters (Z/ℓ, 1/ℓ, σ², the factors, U, Q) are shared by all
 // samples (the iid posterior of C1/C4) or each sample's own (the thinned
-// SG-HMC chain of C2/C3/C5/C7): each array comes with a per-sample stride,
-// 0 when shared, and each cluster offsets its pointers by s × stride.
+// SG-HMC chain of C2/C3/C5/C7): each array comes with a per-set stride,
+// 0 when shared, and each cluster offsets its pointers by set × stride.
+//
+// Groups.  A grouped launch (`groups` not null) runs several independent
+// posteriors at once, such as the datasets of one evaluation: a group is
+// group_rows rows that share one parameter set, and each group has its own
+// controls (T, CU) at set × T × CU in `ctrl`, its own number of steps
+// (≤ T, the stride of `noise`, xs and vs, whose tail past a group's steps
+// is not written) and its own Philox key.  `groups` holds three int64
+// arrays over the launch's block-order slots: the keys, the step counts and
+// each slot's set, so the wrapper (ops/rollout.py::rollout_grouped) puts
+// the longest groups first (the first wave of clusters) while every set,
+// control and output row stays in the caller's order.  Grouping is a
+// template flag: the shared and per-sample launches (one group, `groups`
+// null) run the instantiation without it, whose step loop reads the
+// launch's own `n_t`, `seed` and controls, so their code, registers and
+// occupancy are those of a kernel that has no groups.
 //
 // ε is read from `noise` (S,T,D) when given; otherwise it is drawn here:
-// Philox4x32-10 keyed by the 64-bit `seed`, counter (row_offset + s, t, d,
+// Philox4x32-10 keyed by the 64-bit key of the row's group (`seed` for one
+// group), counter (row_offset + the row's index within its group, t, d,
 // 0), and the Box-Muller of pallas_rollout.py::bits_to_normal on the first
-// two words.  `row_offset` lets a launch of rows [r0, r1) of a larger batch
-// (one launch a process of a sharded run) draw the normals that one launch
-// of the whole batch gives those rows; each row's arithmetic is independent
-// of the others', so the rows come out as the whole launch's.
+// two words.  So a grouped launch draws for each row what a launch of its
+// group alone gives it.  `row_offset` lets a launch of rows [r0, r1) of a
+// larger batch (one launch a process of a sharded run) draw the normals
+// that one launch of the whole batch gives those rows; each row's
+// arithmetic is independent of the others', so the rows come out as the
+// whole launch's.
 // ffvd_tpu_torch/ops/rollout.py holds the plain PyTorch version of all of it,
 // the generator included, so both give the same stream for the same seed.
 //
@@ -78,6 +96,7 @@ constexpr int kRowThreads = 4;  // threads per factor row; ROW_THREADS in
 constexpr int kErrThreads = -1;  // block size not a warp multiple or too big
 constexpr int kErrSmem = -2;     // plan's shared memory too small or too big
 constexpr int kErrCluster = -3;  // cluster shape invalid for D, or none fits
+constexpr int kErrGroups = -4;   // the rows are not whole groups
 
 constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
 constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
@@ -193,11 +212,26 @@ struct SampleStrides {
   unsigned int zs, ils, kvar, lp, u, q, qp;
 };
 
-// One cluster of C CTAs per sample (blocks s·C … s·C+C−1); CTA r owns dims
+// What a row of a grouped launch reads of its group in the step loop, in
+// static shared memory: written before the first cluster barrier and read
+// (volatile) where each is used, so none of it holds a register through
+// the loop.  The grouped instantiations then take at most 72 registers on
+// sm_90a; the others have no `RowGroup` and keep their own counts.
+struct RowGroup {
+  unsigned long long key;  // Philox key
+  int steps;               // steps the row runs, ≤ n_t
+  int row;                 // its row of noise, xs and vs
+  unsigned int ctrl;       // offset of its controls in `ctrl`
+  uint32_t prow;           // the Philox counter's row word
+};
+
+// One cluster of C CTAs per row (blocks s·C … s·C+C−1); CTA r owns dims
 // r, r+C, ... < D.  kResident: the packed factors sit in shared memory;
-// otherwise the same loops read them from global memory.  The shapes below
-// are one sample's slice: sample s starts at s × its stride in `st`.
-template <typename T, bool kResident>
+// otherwise the same loops read them from global memory.  kGrouped: the
+// rows form groups (`groups`, group_rows rows each); otherwise row s reads
+// set s (a stride of 0 shares it).  The shapes below are one parameter
+// set's slice: set k starts at k × its stride in `st`.
+template <typename T, bool kResident, bool kGrouped>
 __global__ void rollout_kernel(
     const T* __restrict__ x0,      // (S, D)
     const T* __restrict__ zs,      // (D, M, Din)  Z/ℓ
@@ -206,20 +240,42 @@ __global__ void rollout_kernel(
     const T* __restrict__ lp,      // (D, M(M+1)/2) σ²Lm⁻¹, packed lower rows
     const T* __restrict__ u,       // (M, D)
     const T* __restrict__ q,       // (D,)
-    const T* __restrict__ ctrl,    // (T, CU)      may be null when CU = 0
+    const T* __restrict__ ctrl,    // (T, CU) or (sets, T, CU); null if CU = 0
     const T* __restrict__ qp,      // (D, M(M+1)/2) q_sqrtᵀ, packed, or null
     const T* __restrict__ noise,   // (S, T, D)    or null: draw in-kernel
     T* __restrict__ xs,            // (S, T, D)
     T* __restrict__ vs,            // (S, T, D)
-    int n_t, int D, int M, int CU, int G, SampleStrides st, uint64_t seed,
-    uint32_t row_offset) {
+    const long long* __restrict__ groups,  // (3, slots), kGrouped only
+    int n_t, int D, int M, int CU, int G, int group_rows, SampleStrides st,
+    uint64_t seed, uint32_t row_offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sh = reinterpret_cast<T*>(smem_raw);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int r = (int)cluster.block_rank();
-  const int s = blockIdx.x / C;
-  const unsigned su = (unsigned)s;  // sample s's slice: base + su × stride
+  const int s = blockIdx.x / C;  // the row's place in block order
+  // Its parameter set (slice: base + su × stride) and its row of noise, xs
+  // and vs: s for one group, else its slot's in `groups`, whose steps,
+  // key, controls and Philox row word go to `rg` (one group: the launch's
+  // own n_t, seed, controls and row_offset + s).
+  unsigned su = (unsigned)s;
+  int row = s;
+  __shared__ RowGroup rg_;
+  volatile RowGroup& rg = rg_;
+  if constexpr (kGrouped) {
+    const int slots = (int)(gridDim.x / C) / group_rows;
+    const int slot = s / group_rows;
+    const int in_group = s - slot * group_rows;
+    su = (unsigned)groups[2 * slots + slot];
+    row = (int)su * group_rows + in_group;
+    if (threadIdx.x == 0) {
+      rg.key = (unsigned long long)groups[slot];
+      rg.steps = (int)groups[slots + slot];
+      rg.row = row;
+      rg.ctrl = su * (unsigned)(n_t * CU);
+      rg.prow = row_offset + (uint32_t)in_group;
+    }
+  }
   const int din = D + CU;
   const int P = M * (M + 1) / 2;
   const Layout L(D, M, din, G, kResident);
@@ -293,14 +349,15 @@ __global__ void rollout_kernel(
       s_q[g] = qs[r + g * C];
     }
   }
-  for (int i = tid; i < D; i += nth) xbuf[i] = x0[(size_t)s * D + i];
+  for (int i = tid; i < D; i += nth) xbuf[i] = x0[(size_t)row * D + i];
   // Every CTA of the cluster has started (a condition of writing into its
-  // shared memory) and filled its buffers.
+  // shared memory) and filled its buffers, and `rg` is written.
   cluster.sync();
 
   const int sub = tid % kRowThreads;
   const int rows_per_pass = nth / kRowThreads;
-  for (int t = 0; t < n_t; ++t) {
+  // Every CTA of a cluster runs the same row, so all of them stop together.
+  for (int t = 0; t < (kGrouped ? (int)rg.steps : n_t); ++t) {
     const T* const xcur = xbuf + (t & 1) * D;
     const int nxt = ((t + 1) & 1) * D;
 
@@ -309,16 +366,22 @@ __global__ void rollout_kernel(
     for (int g = nth - 1 - tid; g < n_own; g += nth) {
       const int d = r + g * C;
       s_eps[g] = noise != nullptr
-                     ? noise[((size_t)s * n_t + t) * D + d]
-                     : philox_normal<T>(seed, row_offset + (uint32_t)s,
-                                        (uint32_t)t, (uint32_t)d);
+                     ? noise[((size_t)(kGrouped ? (int)rg.row : s) * n_t
+                              + t) * D + d]
+                     : philox_normal<T>(
+                           kGrouped ? (uint64_t)rg.key : seed,
+                           kGrouped ? (uint32_t)rg.prow
+                                    : row_offset + (uint32_t)s,
+                           (uint32_t)t, (uint32_t)d);
     }
     for (int i = tid; i < GM; i += nth) {
       const T* zr = s_z + i * din;
       const T* il = s_il + (i / M) * din;
       T r2 = T(0);
       for (int k = 0; k < din; ++k) {
-        const T xk = k < D ? xcur[k] : ctrl[(size_t)t * CU + (k - D)];
+        const T xk = k < D ? xcur[k]
+                           : (kGrouped ? ctrl + rg.ctrl
+                                       : ctrl)[(size_t)t * CU + (k - D)];
         const T df = zr[k] - xk * il[k];
         r2 += df * df;
       }
@@ -366,7 +429,8 @@ __global__ void rollout_kernel(
         if (qbase != nullptr) var += sw;
         T vt = var + s_q[g];
         vt = vt < T(0) ? T(0) : vt;  // keeps NaN, like jnp.maximum
-        const size_t o = ((size_t)s * n_t + t) * D + d;
+        const size_t o =
+            ((size_t)(kGrouped ? (int)rg.row : s) * n_t + t) * D + d;
         xn = (xcur[d] + sm) + s_eps[g] * d_sqrt(vt);
         xs[o] = xn;
         vs[o] = vt;
@@ -390,17 +454,18 @@ __global__ void normals_kernel(uint64_t seed, float* __restrict__ out,
 // The instantiation's block limit (its register use caps it: fp64 may not
 // reach 1024 threads) and the dynamic shared memory a block may opt into,
 // after opting in.  Returns a CUDA error, 0 on success.
-template <typename T, bool kResident>
+template <typename T, bool kResident, bool kGrouped>
 int kernel_limits(int* max_threads, int* smem_optin) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, rollout_kernel<T, kResident>);
+  cudaError_t err = cudaFuncGetAttributes(
+      &attr, rollout_kernel<T, kResident, kGrouped>);
   int dev = 0, optin = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(rollout_kernel<T, kResident>,
+    err = cudaFuncSetAttribute(rollout_kernel<T, kResident, kGrouped>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin - (int)attr.sharedSizeBytes);
   if (err != cudaSuccess) return (int)err;
@@ -409,14 +474,15 @@ int kernel_limits(int* max_threads, int* smem_optin) {
   return 0;
 }
 
-template <typename T, bool kResident>
+template <typename T, bool kResident, bool kGrouped>
 int launch(const T* x0, const T* zs, const T* ils, const T* kvar, const T* lp,
            const T* u, const T* q, const T* ctrl, const T* qp, const T* noise,
-           T* xs, T* vs, int S, int n_t, int D, int M, int CU, int C, int G,
-           int threads, int smem_bytes, SampleStrides st, uint64_t seed,
+           T* xs, T* vs, const long long* groups, int S, int n_t, int D,
+           int M, int CU, int C, int G, int threads, int smem_bytes,
+           int group_rows, SampleStrides st, uint64_t seed,
            uint32_t row_offset, cudaStream_t stream) {
   int max_threads = 0, optin = 0;
-  const int err = kernel_limits<T, kResident>(&max_threads, &optin);
+  const int err = kernel_limits<T, kResident, kGrouped>(&max_threads, &optin);
   if (err != 0) return err;
   if (threads < 32 || threads % 32 != 0 || threads > max_threads)
     return kErrThreads;
@@ -424,6 +490,7 @@ int launch(const T* x0, const T* zs, const T* ils, const T* kvar, const T* lp,
   if ((size_t)smem_bytes < (size_t)L.total * sizeof(T) || smem_bytes > optin)
     return kErrSmem;
   if (S <= 0 || n_t <= 0) return (int)cudaGetLastError();
+  if (group_rows < 1 || S % group_rows != 0) return kErrGroups;
 
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned int)(S * C));
@@ -439,13 +506,15 @@ int launch(const T* x0, const T* zs, const T* ils, const T* kvar, const T* lp,
   cfg.numAttrs = 1;
   int clusters = 0;
   cudaError_t e = cudaOccupancyMaxActiveClusters(
-      &clusters, reinterpret_cast<const void*>(&rollout_kernel<T, kResident>),
+      &clusters,
+      reinterpret_cast<const void*>(&rollout_kernel<T, kResident, kGrouped>),
       &cfg);
   if (e != cudaSuccess) return (int)e;
   if (clusters < 1) return kErrCluster;
-  e = cudaLaunchKernelEx(&cfg, rollout_kernel<T, kResident>, x0, zs, ils,
-                         kvar, lp, u, q, ctrl, qp, noise, xs, vs, n_t, D, M,
-                         CU, G, st, seed, row_offset);
+  e = cudaLaunchKernelEx(&cfg, rollout_kernel<T, kResident, kGrouped>, x0,
+                         zs, ils, kvar, lp, u, q, ctrl, qp, noise, xs, vs,
+                         groups, n_t, D, M, CU, G, group_rows, st, seed,
+                         row_offset);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -453,34 +522,46 @@ int launch(const T* x0, const T* zs, const T* ils, const T* kvar, const T* lp,
 template <typename T>
 int launch_rollout(const T* x0, const T* zs, const T* ils, const T* kvar,
                    const T* lp, const T* u, const T* q, const T* ctrl,
-                   const T* qp, const T* noise, T* xs, T* vs, int S, int n_t,
-                   int D, int M, int CU, int C, int G, int threads,
-                   int smem_bytes, int resident, SampleStrides st,
+                   const T* qp, const T* noise, T* xs, T* vs,
+                   const long long* groups, int S, int n_t, int D, int M,
+                   int CU, int C, int G, int threads, int smem_bytes,
+                   int resident, int group_rows, SampleStrides st,
                    uint64_t seed, uint32_t row_offset, void* stream) {
   if (C < 1 || C > 8 || C > D || G != (D + C - 1) / C) return kErrCluster;
-  auto* launcher = resident ? &launch<T, true> : &launch<T, false>;
-  return launcher(x0, zs, ils, kvar, lp, u, q, ctrl, qp, noise, xs, vs, S,
-                  n_t, D, M, CU, C, G, threads, smem_bytes, st, seed,
-                  row_offset, (cudaStream_t)stream);
+  auto* launcher =
+      groups != nullptr
+          ? (resident ? &launch<T, true, true> : &launch<T, false, true>)
+          : (resident ? &launch<T, true, false> : &launch<T, false, false>);
+  return launcher(x0, zs, ils, kvar, lp, u, q, ctrl, qp, noise, xs, vs,
+                  groups, S, n_t, D, M, CU, C, G, threads, smem_bytes,
+                  group_rows, st, seed, row_offset, (cudaStream_t)stream);
 }
 
-}  // namespace
-
-// The limits a launch plan must keep for this itemsize (4 or 8): the
-// largest block either instantiation takes and the dynamic shared memory a
-// block may opt into.  Returns a CUDA error, 0 on success.
-extern "C" int ffvd_rollout_limits(int itemsize, int* max_threads,
-                                   int* smem_optin) {
+// The limits of the two instantiations (resident and not) of one kind.
+template <typename T, bool kGrouped>
+int kind_limits(int* max_threads, int* smem_optin) {
   int t0 = 0, t1 = 0, s0 = 0, s1 = 0;
-  int err = itemsize == 4 ? kernel_limits<float, false>(&t0, &s0)
-                          : kernel_limits<double, false>(&t0, &s0);
-  if (err == 0)
-    err = itemsize == 4 ? kernel_limits<float, true>(&t1, &s1)
-                        : kernel_limits<double, true>(&t1, &s1);
+  int err = kernel_limits<T, false, kGrouped>(&t0, &s0);
+  if (err == 0) err = kernel_limits<T, true, kGrouped>(&t1, &s1);
   if (err != 0) return err;
   *max_threads = t0 < t1 ? t0 : t1;
   *smem_optin = s0 < s1 ? s0 : s1;
   return 0;
+}
+
+}  // namespace
+
+// The limits a launch plan must keep for this itemsize (4 or 8), of
+// grouped launches or of the others: the largest block either
+// instantiation (resident or not) takes and the dynamic shared memory a
+// block may opt into.  Returns a CUDA error, 0 on success.
+extern "C" int ffvd_rollout_limits(int itemsize, int grouped,
+                                   int* max_threads, int* smem_optin) {
+  if (itemsize == 4)
+    return grouped ? kind_limits<float, true>(max_threads, smem_optin)
+                   : kind_limits<float, false>(max_threads, smem_optin);
+  return grouped ? kind_limits<double, true>(max_threads, smem_optin)
+                 : kind_limits<double, false>(max_threads, smem_optin);
 }
 
 extern "C" int ffvd_rollout_f32(const float* x0, const float* zs,
@@ -488,9 +569,11 @@ extern "C" int ffvd_rollout_f32(const float* x0, const float* zs,
                                 const float* lp, const float* u,
                                 const float* q, const float* ctrl,
                                 const float* qp, const float* noise,
-                                float* xs, float* vs, int S, int n_t, int D,
-                                int M, int CU, int C, int G, int threads,
-                                int smem_bytes, int resident,
+                                float* xs, float* vs,
+                                const long long* groups,
+                                int S, int n_t, int D, int M, int CU, int C,
+                                int G, int threads, int smem_bytes,
+                                int resident, int group_rows,
                                 unsigned st_zs, unsigned st_ils,
                                 unsigned st_kvar, unsigned st_lp,
                                 unsigned st_u, unsigned st_q,
@@ -498,9 +581,9 @@ extern "C" int ffvd_rollout_f32(const float* x0, const float* zs,
                                 unsigned row_offset, void* stream) {
   const SampleStrides st{st_zs, st_ils, st_kvar, st_lp, st_u, st_q, st_qp};
   return launch_rollout<float>(x0, zs, ils, kvar, lp, u, q, ctrl, qp, noise,
-                               xs, vs, S, n_t, D, M, CU, C, G, threads,
-                               smem_bytes, resident, st, seed, row_offset,
-                               stream);
+                               xs, vs, groups, S, n_t, D, M, CU, C, G,
+                               threads, smem_bytes, resident, group_rows, st,
+                               seed, row_offset, stream);
 }
 
 extern "C" int ffvd_rollout_f64(const double* x0, const double* zs,
@@ -508,9 +591,11 @@ extern "C" int ffvd_rollout_f64(const double* x0, const double* zs,
                                 const double* lp, const double* u,
                                 const double* q, const double* ctrl,
                                 const double* qp, const double* noise,
-                                double* xs, double* vs, int S, int n_t, int D,
-                                int M, int CU, int C, int G, int threads,
-                                int smem_bytes, int resident,
+                                double* xs, double* vs,
+                                const long long* groups,
+                                int S, int n_t, int D, int M, int CU, int C,
+                                int G, int threads, int smem_bytes,
+                                int resident, int group_rows,
                                 unsigned st_zs, unsigned st_ils,
                                 unsigned st_kvar, unsigned st_lp,
                                 unsigned st_u, unsigned st_q,
@@ -518,9 +603,9 @@ extern "C" int ffvd_rollout_f64(const double* x0, const double* zs,
                                 unsigned row_offset, void* stream) {
   const SampleStrides st{st_zs, st_ils, st_kvar, st_lp, st_u, st_q, st_qp};
   return launch_rollout<double>(x0, zs, ils, kvar, lp, u, q, ctrl, qp, noise,
-                                xs, vs, S, n_t, D, M, CU, C, G, threads,
-                                smem_bytes, resident, st, seed, row_offset,
-                                stream);
+                                xs, vs, groups, S, n_t, D, M, CU, C, G,
+                                threads, smem_bytes, resident, group_rows, st,
+                                seed, row_offset, stream);
 }
 
 // n standard normals from the rollout's generator: out[i] is the draw of

@@ -152,7 +152,8 @@ def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
     (``utils.graphs.graph_scope``)."""
     from ffvd_tpu_torch.eval.rollout import (posterior_inputs,
                                              recursion_rollout,
-                                             rollout_controls, thin_posterior)
+                                             rollout_controls, thin_posterior,
+                                             uses_recursion)
     from ffvd_tpu_torch.model.deep import hidden_normals
     from ffvd_tpu_torch.ops import rollout as rollout_ops
     from ffvd_tpu_torch.ops.kernels import KernelParams
@@ -170,7 +171,7 @@ def multichain_moments(mct, state, test_len: int, num: Optional[int] = None,
     d = x.shape[-1]
     # One process of an 'ep' group rolls its chains out.
     launch = axis_index(mesh, "ep") == 0
-    recursion = cfg.kernel_type != "SquaredExponential" or cfg.n_layers > 1
+    recursion = uses_recursion(cfg)
     with span("ffvd::eval.prep"):
         controls = rollout_controls(mct.data, test_len)
         capture = mct.capture_mode(state, capture)

@@ -246,25 +246,38 @@ def _thin(trainer: Trainer, state: TrainState, num: int, spacing: int,
                                    params), sghmc=sstate.map(keep))
 
 
+def rollout_inputs(trainer: Trainer, params: GPSSMParams) -> dict:
+    """One parameter set's inputs of the rollout kernel, keyed and ordered
+    as ``ops.rollout``'s first arguments: the kernel hypers, Z, the head's
+    Kmm factor Lm⁻¹, U or the collapsed q(U) mean and factor from
+    ``trainer.data``, Q and x_N."""
+    pre = rollout_precal(trainer.cfg, params)
+    u_val, q_sqrt = u_and_qsqrt(trainer, params, trainer.data, pre)
+    return {"kparams": params.kernel, "z": params.z, "lm_inv": pre.lm_inv,
+            "u_val": u_val, "q_sqrt": q_sqrt, "q": params.q,
+            "x0": params.x[-1]}
+
+
+def stack_inputs(sets: List[dict]) -> dict:
+    """``rollout_inputs`` of several sets stacked on a leading axis, as
+    ``rollout_batched`` and ``rollout_grouped`` take them."""
+    stack = lambda vs: None if vs[0] is None else torch.stack(vs).detach()
+    col = lambda k: [s[k] for s in sets]
+    return {k: KernelParams(stack([p.log_variance for p in col(k)]),
+                            stack([p.log_lengthscales for p in col(k)]))
+            if k == "kparams" else stack(col(k)) for k in sets[0]}
+
+
 def posterior_inputs(trainer: Trainer, samples: List[GPSSMParams]) -> dict:
     """The rollout's per-sample inputs, stacked on a leading sample axis:
     each sample's Kmm factorisation, its U (or collapsed q(U)), Q and x_N."""
-    cfg = trainer.cfg
-    cols = {k: [] for k in ("log_variance", "log_lengthscales", "z",
-                            "lm_inv", "u_val", "q_sqrt", "q", "x0")}
-    for p in samples:
-        pre = rollout_precal(cfg, p)
-        u_val, q_sqrt = u_and_qsqrt(trainer, p, trainer.data, pre)
-        for k, v in (("log_variance", p.kernel.log_variance),
-                     ("log_lengthscales", p.kernel.log_lengthscales),
-                     ("z", p.z), ("lm_inv", pre.lm_inv), ("u_val", u_val),
-                     ("q_sqrt", q_sqrt), ("q", p.q), ("x0", p.x[-1])):
-            cols[k].append(v)
-    out = {k: None if v[0] is None else torch.stack(v).detach()
-           for k, v in cols.items()}
-    out["kparams"] = KernelParams(out.pop("log_variance"),
-                                  out.pop("log_lengthscales"))
-    return out
+    return stack_inputs([rollout_inputs(trainer, p) for p in samples])
+
+
+def uses_recursion(cfg) -> bool:
+    """Does this config roll out by ``recursion_rollout`` (LinearK, or a
+    deep model) rather than the kernel (SE-ARD, shallow)?"""
+    return cfg.kernel_type != "SquaredExponential" or cfg.n_layers > 1
 
 
 def rollout_controls(data: SSMData, test_len: int) -> torch.Tensor:
@@ -470,8 +483,7 @@ def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
         capture = trainer.capture_mode(state, capture)
         controls = rollout_controls(trainer.data, test_len)
         x = state.params.x
-        recursion = (cfg.kernel_type != "SquaredExponential"
-                     or cfg.n_layers > 1)
+        recursion = uses_recursion(cfg)
         if recursion and noise is None:
             noise = hidden_normals(1, (num, test_len), x.shape[1], generator,
                                    x.dtype, x.device)[0]
@@ -498,11 +510,9 @@ def collect_posterior(trainer: Trainer, state: TrainState, test_len: int,
         return (*recursion_rollout(trainer, params, controls, noise,
                                    hidden_noise, capture=capture), state)
     with span("ffvd::eval.prep"):
-        pre = rollout_precal(cfg, params)
-        u_val, q_sqrt = u_and_qsqrt(trainer, params, trainer.data, pre)
-    xs, vs = rollout_ops.rollout(
-        params.kernel, params.z, pre.lm_inv, u_val, q_sqrt, params.q,
-        params.x[-1], controls, num, noise=noise, generator=generator)
+        inp = rollout_inputs(trainer, params)
+    xs, vs = rollout_ops.rollout(controls=controls, num_samples=num,
+                                 noise=noise, generator=generator, **inp)
     return xs, vs, state
 
 

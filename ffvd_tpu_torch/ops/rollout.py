@@ -10,7 +10,11 @@ same signature and the same arithmetic.  ``rollout_batched`` (plain
 version ``rollout_reference_batched``) takes its own parameters for each
 sample, as a thinned SG-HMC posterior has them, and is still one launch:
 the kernel reads each parameter array at a per-sample stride, 0 when the
-samples share it.
+samples share it.  ``rollout_grouped`` (plain version
+``rollout_reference_grouped``) runs G independent posteriors in one
+launch, such as the datasets of one evaluation: each group of R rows has
+its own parameter set, controls, number of steps and generator, and its
+rows come out as a ``rollout`` of that group alone would give them.
 
 The noise ε is either given (``noise`` of shape (S, T, D), so tests can feed
 both packages the same draws) or drawn from Philox4x32-10 keyed by a 64-bit
@@ -33,7 +37,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -140,10 +144,10 @@ def _prepare(kparams: KernelParams, z, lm_inv, q_sqrt, batched=False):
 
 
 def _check_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls,
-                  num_samples, noise, batched=False):
-    """Shapes, devices and dtypes of a call.  ``batched``: every parameter
-    has a leading sample axis of ``num_samples``."""
-    lead = (num_samples,) if batched else ()
+                  num_samples, noise, lead=()):
+    """Shapes, devices and dtypes of a call.  ``lead``: the leading axes
+    of every parameter, () for one set, (S,) for one a sample, (G,) for one
+    a group."""
     m, din = z.shape[-2:]
     d = x0.shape[-1]
     cu = controls.shape[1]
@@ -153,7 +157,7 @@ def _check_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls,
                          f"{d} + {cu}")
     want = {"z": (z, (m, din)), "lm_inv": (lm_inv, (d, m, m)),
             "u_val": (u_val, (m, d)), "q": (q, (d,)), "x0": (x0, (d,))}
-    if batched:
+    if lead:
         want["log_variance"] = (kparams.log_variance, (d,))
         want["log_lengthscales"] = (kparams.log_lengthscales, (d, din))
     if q_sqrt is not None:
@@ -236,13 +240,72 @@ def rollout_reference_batched(kparams: KernelParams, z: torch.Tensor,
     (s, t, d))."""
     s = x0.shape[0]
     _check_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls, s,
-                  noise, batched=True)
+                  noise, lead=(s,))
     if noise is None:
         noise = philox_normals(draw_seed(generator),
                                (s, controls.shape[0], x0.shape[1]), z.dtype,
                                z.device, row_offset)
     return _reference_steps(*_prepare(kparams, z, lm_inv, q_sqrt, True),
                             u_val, q, x0, controls, noise)
+
+
+def _check_grouped(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls,
+                   num_samples, noise, generators) -> List[int]:
+    """A grouped call's checks: every parameter with a leading group axis
+    G, G controls (T_g, U), G noise tensors (R, T_g, D) and G generators
+    when given.  Returns the groups' lengths T_g."""
+    g = z.shape[0]
+    for name, seq in (("controls", controls), ("noise", noise),
+                      ("generators", generators)):
+        if seq is not None and len(seq) != g:
+            raise ValueError(f"{len(seq)} {name} for {g} groups")
+    if g == 0:
+        raise ValueError("rollout_grouped needs at least one group")
+    for i, c in enumerate(controls):
+        try:
+            _check_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, x0, c,
+                          num_samples, None if noise is None else noise[i],
+                          lead=(g,))
+        except ValueError as e:
+            raise ValueError(f"group {i}: {e}") from None
+    return [c.shape[0] for c in controls]
+
+
+def _pad_groups(ts: Sequence[torch.Tensor], length: int,
+                dim: int) -> torch.Tensor:
+    """Tensors that differ only in axis ``dim``, stacked on a new leading
+    axis, each zero-padded in ``dim`` to ``length``."""
+    shape = list(ts[0].shape)
+    shape[dim] = length
+    out = ts[0].new_zeros([len(ts)] + shape)
+    for o, t in zip(out, ts):
+        o.narrow(dim, 0, t.shape[dim]).copy_(t)
+    return out
+
+
+def rollout_reference_grouped(kparams: KernelParams, z: torch.Tensor,
+                              lm_inv: torch.Tensor, u_val: torch.Tensor,
+                              q_sqrt: Optional[torch.Tensor], q: torch.Tensor,
+                              x0: torch.Tensor,
+                              controls: Sequence[torch.Tensor],
+                              num_samples: int, *,
+                              noise: Optional[Sequence[torch.Tensor]] = None,
+                              generators: Optional[Sequence[
+                                  Optional[torch.Generator]]] = None,
+                              row_offset: int = 0):
+    """Plain version of ``rollout_grouped``: ``rollout_reference`` of each
+    group's set in turn, padded with zeros to the longest group."""
+    lens = _check_grouped(kparams, z, lm_inv, u_val, q_sqrt, q, x0,
+                          controls, num_samples, noise, generators)
+    outs = [rollout_reference(
+        KernelParams(kparams.log_variance[g], kparams.log_lengthscales[g]),
+        z[g], lm_inv[g], u_val[g], None if q_sqrt is None else q_sqrt[g],
+        q[g], x0[g], c, num_samples,
+        noise=None if noise is None else noise[g],
+        generator=None if generators is None else generators[g],
+        row_offset=row_offset) for g, c in enumerate(controls)]
+    return tuple(_pad_groups([o[k] for o in outs], max(lens), 1)
+                 for k in (0, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +356,9 @@ def kernel_inputs(kparams: KernelParams, z, lm_inv, u_val, q_sqrt, q, x0,
     x0 per sample, Z/ℓ, 1/ℓ, σ², σ²Lm⁻¹ packed by lower rows, U, Q, the
     controls (None when U = 0) and q_sqrtᵀ packed by lower rows (row k is
     column k of the upper q_sqrt) or None.  ``batched``: every input has a
-    leading sample axis and the arrays keep it (``sample_strides``)."""
+    leading sample axis and the arrays keep it (``sample_strides``); x0 is
+    then one row a rollout, and the controls may carry a leading group
+    axis."""
     zs, ils, kvar, lminv, qsq = _prepare(kparams, z, lm_inv, q_sqrt, batched)
     if not batched:
         x0 = x0[None, :].expand(num_samples, x0.shape[0])
@@ -302,7 +367,7 @@ def kernel_inputs(kparams: KernelParams, z, lm_inv, u_val, q_sqrt, q, x0,
         "zs": zs.contiguous(), "ils": ils.contiguous(),
         "kvar": kvar.contiguous(), "lp": pack_lower_rows(lminv),
         "u_val": u_val.contiguous(), "q": q.contiguous(),
-        "controls": controls if controls.shape[1] > 0 else None,
+        "controls": controls if controls.shape[-1] > 0 else None,
         "qp": None if qsq is None else pack_lower_rows(qsq.mT),
     }
 
@@ -333,6 +398,7 @@ _LAUNCH_ERRORS = {
     -2: "the plan's shared memory is below the kernel's layout or above the "
         "opt-in",
     -3: "the plan's cluster shape is invalid for D or cannot be scheduled",
+    -4: "the launch's rows are not whole groups",
 }
 
 
@@ -342,11 +408,12 @@ def _library() -> ctypes.CDLL:
         from ffvd_tpu_torch.utils.cuda_build import load
         lib = load("rollout")
         for fn in (lib.ffvd_rollout_f32, lib.ffvd_rollout_f64):
-            fn.argtypes = ([_ptr] * 12 + [ctypes.c_int] * 10
+            fn.argtypes = ([_ptr] * 13 + [ctypes.c_int] * 11
                            + [ctypes.c_uint] * len(STRIDED)
                            + [ctypes.c_uint64, ctypes.c_uint, _ptr])
             fn.restype = ctypes.c_int
-        lib.ffvd_rollout_limits.argtypes = [ctypes.c_int, _ptr, _ptr]
+        lib.ffvd_rollout_limits.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            _ptr, _ptr]
         lib.ffvd_rollout_limits.restype = ctypes.c_int
         lib.ffvd_normals.argtypes = [ctypes.c_uint64, _ptr, ctypes.c_longlong,
                                      _ptr]
@@ -355,16 +422,19 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def kernel_limits(device, itemsize: int) -> Tuple[int, int]:
+def kernel_limits(device, itemsize: int,
+                  grouped: bool = False) -> Tuple[int, int]:
     """(max_threads, smem_optin) of the kernel on ``device`` for float32
-    (itemsize 4) or float64 (8), looked up once per device."""
+    (itemsize 4) or float64 (8), of grouped launches or of the others (two
+    instantiations each), looked up once per device."""
     device = torch.device(device)
     with torch.cuda.device(device):
-        key = (torch.cuda.current_device(), itemsize)
+        key = (torch.cuda.current_device(), itemsize, grouped)
         if key not in _limits:
             threads, optin = ctypes.c_int(), ctypes.c_int()
             err = _library().ffvd_rollout_limits(
-                itemsize, ctypes.addressof(threads), ctypes.addressof(optin))
+                itemsize, int(grouped), ctypes.addressof(threads),
+                ctypes.addressof(optin))
             if err != 0:
                 raise RuntimeError(f"rollout kernel limits: CUDA error {err}")
             _limits[key] = (threads.value, optin.value)
@@ -396,8 +466,9 @@ def rollout(kparams: KernelParams, z: torch.Tensor, lm_inv: torch.Tensor,
     noise's counter).  Returns (xs, var_tot), each (S, T, D), var_tot
     clamped at 0.
     CUDA tensors launch the kernel (float32 or float64) as ``rollout_plan``
-    says, and record the plan in ``rollout.last_plan`` and (rows, plan) in
-    ``rollout.log``; CPU tensors run
+    says, count the launch in ``rollout.launches``, and record the plan in
+    ``rollout.last_plan``, its groups (1) in ``rollout.last_groups`` and
+    (rows, plan) in ``rollout.log``; CPU tensors run
     ``rollout_reference``."""
     if z.device.type == "cpu":
         return rollout_reference(kparams, z, lm_inv, u_val, q_sqrt, q, x0,
@@ -431,9 +502,66 @@ def rollout_batched(kparams: KernelParams, z: torch.Tensor,
     _check_device(z)
     s = x0.shape[0]
     _check_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls, s,
-                  noise, batched=True)
+                  noise, lead=(s,))
     return _launch(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls, s,
                    noise, generator, row_offset, batched=True)
+
+
+@spanned("ffvd::eval.rollout")
+def rollout_grouped(kparams: KernelParams, z: torch.Tensor,
+                    lm_inv: torch.Tensor, u_val: torch.Tensor,
+                    q_sqrt: Optional[torch.Tensor], q: torch.Tensor,
+                    x0: torch.Tensor, controls: Sequence[torch.Tensor],
+                    num_samples: int, *,
+                    noise: Optional[Sequence[torch.Tensor]] = None,
+                    generators: Optional[Sequence[
+                        Optional[torch.Generator]]] = None,
+                    row_offset: int = 0):
+    """G independent posteriors in one launch: group g is R =
+    ``num_samples`` rollouts of T_g = controls[g].shape[0] steps on
+    parameter set g.  kparams (G, D), (G, D, Din); z (G, M, Din); lm_inv
+    and q_sqrt (G, D, M, M); u_val (G, M, D); q (G, D); x0 (G, D);
+    ``controls`` G tensors (T_g, U); ``noise`` G tensors (R, T_g, D) or
+    None; ``generators`` one a group (None: torch's default), each drawing
+    its group's Philox key as ``rollout`` draws its seed, in group order.
+    So group g's rows are ``rollout`` of set g alone with generators[g]
+    and ``row_offset``, bit for bit.  Returns (xs, var_tot), each (G, R,
+    T, D) with T = max T_g, zero past each group's T_g.
+
+    CUDA tensors launch the kernel once for all G×R rows, the longest
+    groups first in block order (the first wave of clusters), counted in
+    ``rollout.launches`` and ``rollout.grouped_launches`` with G in
+    ``rollout.last_groups``; CPU tensors run
+    ``rollout_reference_grouped``."""
+    if z.device.type == "cpu":
+        return rollout_reference_grouped(
+            kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls, num_samples,
+            noise=noise, generators=generators, row_offset=row_offset)
+    _check_device(z)
+    lens = _check_grouped(kparams, z, lm_inv, u_val, q_sqrt, q, x0,
+                          controls, num_samples, noise, generators)
+    _check_offset(row_offset, num_samples)
+    g, r, d = len(lens), num_samples, x0.shape[-1]
+    t_len, cu = max(lens), controls[0].shape[1]
+    if g * t_len * cu >= 2 ** 32:
+        raise ValueError(f"{g} groups of {t_len} × {cu} controls exceed the "
+                         "kernel's 32-bit offsets")
+    gens = [None] * g if generators is None else generators
+    keys = [0] * g if noise is not None else [draw_seed(gen) for gen in gens]
+    order = sorted(range(g), key=lambda i: -lens[i])
+    groups = torch.tensor([keys[i] for i in order] + [lens[i] for i in order]
+                          + order, dtype=torch.int64).pin_memory()
+    rows_x0 = x0[:, None, :].expand(g, r, d).reshape(g * r, d)
+    args = kernel_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, rows_x0,
+                         _pad_groups(controls, t_len, 0), g * r, batched=True)
+    strides = sample_strides(args, True)
+    args["noise"] = (None if noise is None else
+                     _pad_groups(noise, t_len, 1).reshape(g * r, t_len, d))
+    xs = torch.zeros((g * r, t_len, d), dtype=z.dtype, device=z.device)
+    vs = torch.zeros_like(xs)
+    _run(args, strides, xs, vs, r, 0, row_offset,
+         groups.to(z.device, non_blocking=True))
+    return xs.view(g, r, t_len, d), vs.view(g, r, t_len, d)
 
 
 def _check_device(z: torch.Tensor):
@@ -446,40 +574,59 @@ def _check_device(z: torch.Tensor):
 def _launch(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls, s, noise,
             generator, row_offset, batched):
     """One launch of the kernel for S samples, shared or per-sample inputs
-    (checked by the caller).  Raises when the launch fails."""
-    dtype, device = z.dtype, z.device
-    d, m = x0.shape[-1], z.shape[-2]
-    t_len, cu = controls.shape
-    itemsize = z.element_size()
-    max_threads, smem_optin = kernel_limits(device, itemsize)
-    plan = rollout_plan(d, m, d + cu, itemsize, smem_optin, max_threads)
+    (checked by the caller): one group."""
     _check_offset(row_offset, s)
     seed = draw_seed(generator) if noise is None else 0
     args = kernel_inputs(kparams, z, lm_inv, u_val, q_sqrt, q, x0, controls,
                          s, batched)
     strides = sample_strides(args, batched)
     args["noise"] = noise
-    xs = torch.empty((s, t_len, d), dtype=dtype, device=device)
+    xs = torch.empty((s, controls.shape[0], x0.shape[-1]), dtype=z.dtype,
+                     device=z.device)
     vs = torch.empty_like(xs)
+    _run(args, strides, xs, vs, s, seed, row_offset, None)
+    return xs, vs
+
+
+def _run(args: dict, strides, xs: torch.Tensor, vs: torch.Tensor,
+         group_rows: int, seed: int, row_offset: int,
+         groups: Optional[torch.Tensor]) -> None:
+    """Launch the kernel on ``args`` (``kernel_inputs`` and the noise)
+    into xs and vs (S, T, D): ``groups`` (the keys, lengths and sets of
+    the block-order slots) for groups of ``group_rows`` rows, or None for
+    one group of S rows with ``seed``.  Raises when the launch fails."""
+    dtype, device = xs.dtype, xs.device
+    s, t_len, d = xs.shape
+    m, din = args["zs"].shape[-2:]
+    itemsize = xs.element_size()
+    max_threads, smem_optin = kernel_limits(device, itemsize,
+                                            groups is not None)
+    plan = rollout_plan(d, m, din, itemsize, smem_optin, max_threads)
     ptrs = [_kernel_arg(k, v) for k, v in args.items()]
     lib = _library()
     fn = lib.ffvd_rollout_f32 if dtype == torch.float32 else lib.ffvd_rollout_f64
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*ptrs, xs.data_ptr(), vs.data_ptr(), s, t_len, d, m, cu,
-                 plan.cluster, plan.dims_per_cta, plan.threads,
-                 plan.smem_bytes, int(plan.resident), *strides, seed,
-                 row_offset, stream)
+        err = fn(*ptrs, xs.data_ptr(), vs.data_ptr(),
+                 None if groups is None else groups.data_ptr(), s, t_len, d,
+                 m, din - d, plan.cluster, plan.dims_per_cta, plan.threads,
+                 plan.smem_bytes, int(plan.resident), group_rows, *strides,
+                 seed, row_offset, stream)
     if err != 0:
         raise RuntimeError(f"rollout kernel launch failed ({plan}): "
                            + _LAUNCH_ERRORS.get(err, f"CUDA error {err}"))
     rollout.launches += 1
+    rollout.grouped_launches += groups is not None
     rollout.last_plan = plan
+    rollout.last_groups = 1 if groups is None else len(groups) // 3
     rollout.log.append((s, plan))
-    return xs, vs
 
 
 rollout.launches = 0
+# grouped launches (``rollout_grouped``) among them, and the groups of the
+# latest launch
+rollout.grouped_launches = 0
+rollout.last_groups = None
 rollout.last_plan = None
 # (rows, plan) of the latest launches; a caller clears it to watch a path.
 rollout.log = collections.deque(maxlen=64)

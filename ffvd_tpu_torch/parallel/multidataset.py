@@ -128,22 +128,31 @@ class MultiDatasetTrainer(MeshBatchedTrainer):
 
         ``datasets``: the loader objects (y_test, y_train_std, control);
         ``lens``: the real lengths from ``stack_datasets``.  Each model's
-        params are un-padded to x[:n+1] and evaluated through a single
-        ``Trainer``'s ``collect_posterior``, so each dataset is one rollout
-        launch on the card.  Dataset i draws from its own generators, seeded
-        by the i-th draws of ``generator`` (the rollout seeds) and
-        ``thin_generator`` (a sampler case's thinning normals), as JAX
-        splits its key per dataset; ``noise``, one (S, T, D) tensor per
-        dataset, replaces the rollout noise.  For an SG-HMC case the
-        thinning restarts its preconditioner, as in JAX.
+        params are un-padded to x[:n+1] and prepared through a ``Trainer``
+        on its own data.  Where ``collect_posterior`` would call the rollout
+        kernel (SE-ARD, shallow, no SG-HMC leaves: the iid posterior of C1
+        and C4), every dataset's rows go to ONE ``rollout_grouped`` launch,
+        a group of S rows a dataset over its own test half; a sampler case
+        or a LinearK or deep config runs ``collect_posterior`` a dataset.
+        Dataset i draws from its own generators, seeded by the i-th draws
+        of ``generator`` (the rollout keys) and ``thin_generator`` (a
+        sampler case's thinning normals), as JAX splits its key per
+        dataset; ``noise``, one (S, T, D) tensor per dataset, replaces the
+        rollout noise.  For an SG-HMC case the thinning restarts its
+        preconditioner, as in JAX.  The scores stay on the device until one
+        copy to the host.
 
         ``datasets`` and ``lens`` may stop short of the stack: the first
         ones are evaluated.  On a mesh they are the whole lists; the first
-        process of each 'ep' group evaluates its datasets with all D dims,
-        and every process returns the whole dict."""
+        process of each 'ep' group evaluates its datasets with all D dims
+        (one grouped launch for them), and every process returns the whole
+        dict."""
         from ffvd_tpu_torch.eval.rollout import (collect_posterior,
-                                                 predict_summary, rmse_nll)
-        from ffvd_tpu_torch.ops.rollout import draw_seed
+                                                 predict_summary, rmse_nll,
+                                                 rollout_controls,
+                                                 rollout_inputs, stack_inputs,
+                                                 uses_recursion)
+        from ffvd_tpu_torch.ops import rollout as rollout_ops
         if self.has_sghmc:
             warnings.warn(
                 "MultiDatasetTrainer.evaluate restarts the SGHMC "
@@ -156,7 +165,7 @@ class MultiDatasetTrainer(MeshBatchedTrainer):
             if g is None:
                 return [None] * len(datasets)
             return [torch.Generator(device=g.device).manual_seed(
-                draw_seed(g)) for _ in datasets]
+                rollout_ops.draw_seed(g)) for _ in datasets]
 
         with span("ffvd::eval.prep"):
             gens = per_dataset(generator)
@@ -168,6 +177,9 @@ class MultiDatasetTrainer(MeshBatchedTrainer):
             # (rmse, nll) of every dataset; each filled by one process.
             table = torch.zeros((len(datasets), 2), dtype=torch.float64,
                                 device=dev)
+            grouped = not self.has_sghmc and not uses_recursion(self.cfg)
+        rolled = {}              # i → (params, xs, vs)
+        batch = []               # (i, params, inputs, controls) to group
         for i in (range(m0, min(m1, len(datasets)))
                   if axis_index(self.mesh, "ep") == 0 else ()):
             ds, n = datasets[i], lens[i]
@@ -176,20 +188,36 @@ class MultiDatasetTrainer(MeshBatchedTrainer):
                 p = dataclasses.replace(p, x=p.x[:n + 1])
                 tr = Trainer(self.cfg, SSMData(y=as_t(ds.y_train),
                                                control=as_t(ds.control)))
-                start = tr.init_state(p)
-            xs, vs, _ = collect_posterior(
-                tr, start, ds.n_test, generator=gens[i],
-                thin_generator=thin_gens[i],
-                noise=None if noise is None else noise[i])
-            with span("ffvd::eval.moments"):
+            if grouped:
+                with span("ffvd::eval.prep"):
+                    batch.append((i, p, rollout_inputs(tr, p),
+                                  rollout_controls(tr.data, ds.n_test)))
+            else:
+                xs, vs, _ = collect_posterior(
+                    tr, tr.init_state(p), ds.n_test, generator=gens[i],
+                    thin_generator=thin_gens[i],
+                    noise=None if noise is None else noise[i])
+                rolled[i] = (p, xs, vs)
+        if batch:
+            idx, ps, sets, controls = zip(*batch)
+            xs, vs = rollout_ops.rollout_grouped(
+                controls=controls,
+                num_samples=self.cfg.num_posterior_samples,
+                noise=None if noise is None else [noise[i] for i in idx],
+                generators=[gens[i] for i in idx], **stack_inputs(sets))
+            for k, (i, p, c) in enumerate(zip(idx, ps, controls)):
+                t = c.shape[0]
+                rolled[i] = (p, xs[k, :, :t], vs[k, :, :t])
+        with span("ffvd::eval.moments"):
+            for i, (p, xs, vs) in rolled.items():
+                ds = datasets[i]
                 py, pv, _ = predict_summary(p, xs, vs,
                                             self.cfg.emission_noise)
                 rmse, nll = rmse_nll(as_t(ds.y_test), py, pv,
                                      ds.y_train_std, horizon=horizon)
-                table[i, 0], table[i, 1] = float(rmse), float(nll)
-        with span("ffvd::eval.moments"):
+                table[i, 0], table[i, 1] = rmse, nll
             if self.mesh is not None:
                 all_sum(table, dist.group.WORLD)
-            return {ds.name: {"rmse": float(table[i, 0]),
-                              "nll": float(table[i, 1])}
+            scores = table.tolist()
+            return {ds.name: {"rmse": scores[i][0], "nll": scores[i][1]}
                     for i, ds in enumerate(datasets)}

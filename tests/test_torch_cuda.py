@@ -19,7 +19,9 @@ recursion and backtrack under ``set_sync_debug_mode("error")``; and the
 LinearK rollout on the card equals the CPU's (rtol 1e-9) with no launch.
 A ds64 C4 step (the collapsed segment in float64) equals the CPU's.  A
 launch with a Philox ``row_offset`` gives the matching rows of a whole
-launch, bit for bit.
+launch, bit for bit, and a grouped launch (``rollout_grouped``) gives
+each group's rows as the group's own launch does, bit for bit, on both
+plans; a six-dataset ``evaluate()`` is one such launch.
 """
 
 import pytest
@@ -268,6 +270,125 @@ def test_offset_launch_is_the_whole_launchs_rows(cuda, dtype, per_sample):
                else dict(rtol=1e-4, atol=1e-5))
         torch.testing.assert_close(xs[:, :10], xr[:, :10], **tol)
         torch.testing.assert_close(vs[:, :10], vr[:, :10], **tol)
+
+
+@pytest.mark.parametrize("dtype,m,resident", [(torch.float32, 512, False),
+                                              (torch.float64, 100, True)])
+@pytest.mark.parametrize("given_noise", [False, True])
+def test_grouped_launch_is_each_groups_own_launch(cuda, dtype, m, resident,
+                                                  given_noise):
+    """One grouped launch of three parameter sets with ragged lengths (13,
+    9, 4 steps), 5 rows each at ``row_offset`` 3, against a launch of each
+    group alone with the same generator or the same given noise: bit for
+    bit, zero past each group's length; and against the plain grouped
+    version.  M=512 fp32 takes the global plan, M=100 fp64 the shared
+    one."""
+    lens, r = (13, 9, 4), 5
+    sets = [_inputs(cuda, dtype, d=4, m=m, t_len=max(lens), seed=g)
+            for g in range(len(lens))]
+    controls = [s[7][:t] for s, t in zip(sets, lens)]
+    stack = lambda k: torch.stack([s[k] for s in sets])
+    kp = KernelParams(torch.stack([s[0].log_variance for s in sets]),
+                      torch.stack([s[0].log_lengthscales for s in sets]))
+    args = [kp] + [stack(k) for k in range(1, 7)]
+    noise = [torch.randn(r, t, 4, dtype=dtype, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(60 + g))
+             for g, t in enumerate(lens)]
+    if given_noise:
+        draws = lambda: dict(noise=noise)
+        own = lambda g: dict(noise=noise[g])
+    else:
+        seeded = lambda: [torch.Generator().manual_seed(40 + g)
+                          for g in range(len(lens))]
+        draws = lambda: dict(generators=seeded())
+        own = lambda g, gens=seeded(): dict(generator=gens[g])
+    before = (ro.rollout.launches, ro.rollout.grouped_launches)
+    xs, vs = ro.rollout_grouped(*args, controls, r, row_offset=3, **draws())
+    torch.cuda.synchronize()
+    assert (ro.rollout.launches, ro.rollout.grouped_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert ro.rollout.last_groups == 3
+    assert ro.rollout.last_plan.resident is resident
+    assert ro.rollout.log[-1][0] == 3 * r
+    for g, (s, c) in enumerate(zip(sets, controls)):
+        x1, v1 = ro.rollout(*s[:7], c, r, row_offset=3, **own(g))
+        torch.cuda.synchronize()
+        t = lens[g]
+        assert torch.equal(xs[g, :, :t], x1) and torch.equal(vs[g, :, :t], v1)
+        assert not xs[g, :, t:].any() and not vs[g, :, t:].any()
+    assert ro.rollout.last_groups == 1
+    xr, vr = ro.rollout_reference_grouped(*args, controls, r, row_offset=3,
+                                          **draws())
+    if dtype == torch.float64:
+        tol, h = dict(rtol=1e-9, atol=1e-12), max(lens)
+    else:
+        tol, h = dict(rtol=1e-4, atol=1e-5), 10
+    torch.testing.assert_close(xs[:, :, :h], xr[:, :, :h], **tol)
+    torch.testing.assert_close(vs[:, :, :h], vr[:, :, :h], **tol)
+
+
+@pytest.mark.parametrize("kind", ["shared", "grouped"])
+def test_launch_of_no_rows_returns_empty_rows(cuda, kind):
+    """A launch of zero rows returns empty (0, T, D) tensors ((1, 0, T, D)
+    for one group) without error."""
+    args = _inputs(cuda, torch.float32, d=4, m=37, t_len=6)
+    kp = args[0]
+    if kind == "shared":
+        xs, vs = ro.rollout(*args, 0)
+        shape = (0, 6, 4)
+    else:
+        one = lambda t: t[None]
+        xs, vs = ro.rollout_grouped(
+            KernelParams(one(kp.log_variance), one(kp.log_lengthscales)),
+            *[one(t) for t in args[1:7]], [args[7]], 0,
+            generators=[torch.Generator().manual_seed(1)])
+        shape = (1, 0, 6, 4)
+    torch.cuda.synchronize()
+    assert xs.shape == shape and vs.shape == shape
+
+
+def test_six_dataset_evaluate_is_one_grouped_launch(cuda):
+    """``MultiDatasetTrainer.evaluate`` of the six datasets (C4, M=16,
+    fp32): one launch of six groups, and the scores of each dataset's own
+    ``collect_posterior`` launch with the same generator."""
+    import dataclasses
+
+    from ffvd_tpu_torch.config import DATASETS, FFVDConfig
+    from ffvd_tpu_torch.data import create_dataset
+    from ffvd_tpu_torch.eval.rollout import (collect_posterior,
+                                             predict_summary, rmse_nll)
+    from ffvd_tpu_torch.inference.trainer import Trainer
+    from ffvd_tpu_torch.model.params import SSMData
+    from ffvd_tpu_torch.parallel import MultiDatasetTrainer, stack_datasets
+    from ffvd_tpu_torch.parallel.sharding import member
+    data, params, lens = stack_datasets(DATASETS, device=cuda,
+                                        dtype=torch.float32, m=16)
+    cfg = FFVDConfig(dataset="ballbeam", case=4, num_inducing=16)
+    mdt = MultiDatasetTrainer(cfg, data)
+    state = mdt.init_state(params)
+    dss = [create_dataset(n) for n in DATASETS]
+    before = ro.rollout.launches
+    res = mdt.evaluate(state, dss, lens, horizon=512,
+                       generator=torch.Generator().manual_seed(3))
+    assert ro.rollout.launches == before + 1
+    assert ro.rollout.last_groups == len(DATASETS)
+    g = torch.Generator().manual_seed(3)
+    gens = [torch.Generator().manual_seed(ro.draw_seed(g)) for _ in dss]
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    with torch.no_grad():
+        for i, (ds, n) in enumerate(zip(dss, lens)):
+            p = member(state.params, i)
+            p = dataclasses.replace(p, x=p.x[:n + 1])
+            tr = Trainer(cfg, SSMData(y=as_t(ds.y_train),
+                                      control=as_t(ds.control)))
+            xs, vs, _ = collect_posterior(tr, tr.init_state(p), ds.n_test,
+                                          generator=gens[i])
+            py, pv, _ = predict_summary(p, xs, vs)
+            rmse, nll = rmse_nll(as_t(ds.y_test), py, pv, ds.y_train_std,
+                                 horizon=512)
+            assert res[ds.name]["rmse"] == pytest.approx(float(rmse),
+                                                         rel=1e-6)
+            assert res[ds.name]["nll"] == pytest.approx(float(nll), rel=1e-6)
 
 
 def test_kernel_wrapper_rejects_bad_inputs(cuda):

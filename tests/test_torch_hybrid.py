@@ -17,6 +17,7 @@ precision modes (``api.FFVDModel``, the CLI), against the JAX package.
   the CLI runs ``--collapse_precision``.
 """
 
+import inspect
 import types
 
 import jax.numpy as jnp
@@ -111,7 +112,8 @@ def _spy_rollout(monkeypatch):
     seen = {}
 
     def rollout(*a, **k):
-        seen.update(lm_inv=a[2], u_val=a[3], q_sqrt=a[4])
+        got = inspect.signature(ro.rollout).bind(*a, **k).arguments
+        seen.update({n: got[n] for n in ("lm_inv", "u_val", "q_sqrt")})
         return ro.rollout(*a, **k)
     monkeypatch.setattr(er, "rollout_ops", types.SimpleNamespace(
         rollout=rollout, rollout_batched=ro.rollout_batched))

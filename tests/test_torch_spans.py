@@ -4,8 +4,9 @@
   ``multichain_moments`` of two chains (C4, and C5 with its thinning) and
   ``MultiDatasetTrainer.evaluate`` of two datasets each open the spans
   their stages name, as often as the stages run: one ``ffvd::train.read``
-  a chunk, one ``ffvd::eval.rollout`` a launch, and every stage of an
-  evaluation inside its ``ffvd::eval``.  Their results are bit-equal with
+  a chunk, one ``ffvd::eval.rollout`` a launch (one grouped launch for
+  every dataset of ``evaluate``), and every stage of an evaluation inside
+  its ``ffvd::eval``.  Their results are bit-equal with
   and without a profiler.
 - With no profiler, ``span`` returns one shared null context and enters no
   ``record_function``.
@@ -98,12 +99,11 @@ CASES = {
     "multichain-C5": (_multichain(5), {
         "ffvd::eval": 1, "ffvd::eval.prep": 1, "ffvd::eval.thin": 1,
         "ffvd::eval.rollout": 1, "ffvd::eval.moments": 1}, "ffvd::eval"),
-    # one collect_posterior a dataset, itself an evaluation: its own
-    # ffvd::eval, two ffvd::eval.prep (before and after its inputs are
-    # drawn) and one launch
+    # the generators, then a build and a prep a dataset, one grouped
+    # launch for both datasets, and the scores with their one host copy
     "multidataset": (_multidataset, {
-        "ffvd::eval": 3, "ffvd::eval.prep": 5, "ffvd::eval.build": 2,
-        "ffvd::eval.rollout": 2, "ffvd::eval.moments": 3}, "ffvd::eval"),
+        "ffvd::eval": 1, "ffvd::eval.prep": 3, "ffvd::eval.build": 2,
+        "ffvd::eval.rollout": 1, "ffvd::eval.moments": 1}, "ffvd::eval"),
 }
 
 
