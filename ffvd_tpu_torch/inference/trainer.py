@@ -549,7 +549,11 @@ class Trainer:
         and ``prop`` (``grad_draws``: one entry per gradient evaluation, the
         21 sub-steps' first, then Adam's) replace the draws from
         ``generator``; ``feed`` is an int, an array or a device tensor of
-        the member shape."""
+        the member shape.  Under a profiler the sampler phase and the
+        snapshot run inside ``ffvd::train.sghmc``, the feed and the Adam
+        step inside ``ffvd::train.adam``."""
+        # utils/ imports this module
+        from ffvd_tpu_torch.utils.profiling import span
         n_evals = (len(SUBSTEP_FLAGS) if self.has_sghmc else 0) \
             + int(self.has_adam)
         drawn = self.grad_draws(n_evals, generator, state.params.x) if (
@@ -560,48 +564,53 @@ class Trainer:
         prop = (drawn.get("prop") if prop is None
                 else [self._share(p) for p in prop])
         if self.has_sghmc:
-            if noise is None:   # the 21 sub-steps' normals, drawn up front
-                noise = self._sampler_normals(
-                    self.subset.split(state.params), generator,
-                    len(SUBSTEP_FLAGS))
-            else:
-                noise = self._share_tree(noise)
-            params, sghmc = self._sghmc_phase(
-                state.params, state.sghmc, noise, starts, prop)
-            sub = self.subset.split(params)
-            with torch.no_grad():
-                _assign(self.subset.split(state.params), sub)
-                state.sghmc.assign_(sghmc)
-                # Window snapshot as a ring buffer (base_model.py:927-933),
-                # slot step % window_size, the count capped at its size.
-                slot = state.counts[:1] % self.cfg.window_size
-                m = len(self.lead)
-                for k, w in state.window.items():
-                    w.index_copy_(m, slot, sub[k].unsqueeze(m))
-                state.counts[1:].add_(1).clamp_(max=self.cfg.window_size)
+            with span("ffvd::train.sghmc"):
+                if noise is None:   # the 21 sub-steps' normals, up front
+                    noise = self._sampler_normals(
+                        self.subset.split(state.params), generator,
+                        len(SUBSTEP_FLAGS))
+                else:
+                    noise = self._share_tree(noise)
+                params, sghmc = self._sghmc_phase(
+                    state.params, state.sghmc, noise, starts, prop)
+                sub = self.subset.split(params)
+                with torch.no_grad():
+                    _assign(self.subset.split(state.params), sub)
+                    state.sghmc.assign_(sghmc)
+                    # Window snapshot as a ring buffer (base_model.py:
+                    # 927-933), slot step % window_size, the count capped
+                    # at its size.
+                    slot = state.counts[:1] % self.cfg.window_size
+                    m = len(self.lead)
+                    for k, w in state.window.items():
+                        w.index_copy_(m, slot, sub[k].unsqueeze(m))
+                    state.counts[1:].add_(1).clamp_(
+                        max=self.cfg.window_size)
         if self.pg_fn is not None and self.cfg.case_config.x_pg:
             with torch.no_grad():
                 state.params.x.copy_(self._pg(state.params, generator, pg).x)
         if self.has_adam:
-            feed_params = (self._feed_params(state, generator, feed)
-                           if self.has_sghmc else state.params)
-            start, eps = self._eval_draws(starts, prop, n_evals - 1)
-            group = state.adam.param_groups[0]["params"]
-            # The gradient is taken at fresh aliases of the Adam leaves: an
-            # autograd graph made outside the step may hold the leaves' own
-            # grad accumulators, bound to the stream it ran on.
-            leaves = feed_params.leaves()
-            alias = {k: leaves[k].detach().requires_grad_(True)
-                     for k in self.adam_paths}
-            with torch.enable_grad():
-                nll = self.train_nll(GPSSMParams.from_leaves(
-                    {**leaves, **alias}), None, start, eps)
-                grads = grads_of(nll, list(alias.values()))
-            grads = self._reduce_grads(self.adam_paths, grads)
-            for p, g in zip(group, sanitize_grads(grads,
-                                                  self.cfg.sghmc_grad_clip)):
-                p.grad = g
-            state.adam.step()
+            with span("ffvd::train.adam"):
+                feed_params = (self._feed_params(state, generator, feed)
+                               if self.has_sghmc else state.params)
+                start, eps = self._eval_draws(starts, prop, n_evals - 1)
+                group = state.adam.param_groups[0]["params"]
+                # The gradient is taken at fresh aliases of the Adam
+                # leaves: an autograd graph made outside the step may hold
+                # the leaves' own grad accumulators, bound to the stream it
+                # ran on.
+                leaves = feed_params.leaves()
+                alias = {k: leaves[k].detach().requires_grad_(True)
+                         for k in self.adam_paths}
+                with torch.enable_grad():
+                    nll = self.train_nll(GPSSMParams.from_leaves(
+                        {**leaves, **alias}), None, start, eps)
+                    grads = grads_of(nll, list(alias.values()))
+                grads = self._reduce_grads(self.adam_paths, grads)
+                for p, g in zip(group, sanitize_grads(
+                        grads, self.cfg.sghmc_grad_clip)):
+                    p.grad = g
+                state.adam.step()
         else:
             with torch.no_grad():
                 nll = self.train_nll(state.params)

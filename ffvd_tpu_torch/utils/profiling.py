@@ -11,9 +11,14 @@ The spans are ``torch.profiler`` ranges, so a trace puts them on the
 profiler's clock beside the card's kernels and the CUDA runtime calls.
 ``span`` opens one only while a profiler records; otherwise it returns a
 shared null context.  Each is opened once a call, chunk, build, stage or
-launch, never once an iteration, a kernel or a chain:
+launch, never once a kernel or a chain; the step's own two once an eager
+iteration (a captured replay runs no Python, so it opens none):
 
 - ``ffvd::train.run``: ``Trainer.run``, a call;
+- ``ffvd::train.sghmc``: ``Trainer.outer_step``'s SG-HMC phase (the
+  sub-steps' normals, the 21 sub-steps) and the window snapshot;
+- ``ffvd::train.adam``: ``Trainer.outer_step``'s window feed and Adam
+  step;
 - ``ffvd::train.replay``: ``Trainer._replay``'s host loop of a chunk's
   replays;
 - ``ffvd::train.read``: a chunk's trace gathered and read for the NaN

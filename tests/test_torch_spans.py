@@ -1,5 +1,9 @@
 """The port's spans (``utils/profiling.py::span``) under ``torch.profiler``.
 
+- On the CPU, one outer step opens ``ffvd::train.sghmc`` (the SG-HMC
+  phase and the window snapshot) where the case samples, and
+  ``ffvd::train.adam`` (the feed and the Adam step) where it trains by
+  Adam, once each.
 - On the CPU, a C4 ``Trainer.run`` of two chunks, ``Trainer._replay``,
   ``multichain_moments`` of two chains (C4, and C5 with its thinning) and
   ``MultiDatasetTrainer.evaluate`` of two datasets each open the spans
@@ -12,7 +16,8 @@
   ``record_function``.
 - On the card (``cuda``), a captured run's warm-ups and capture are
   spanned, and the card-side copies of the spans come back flagged as user
-  annotations, not kernels.
+  annotations, not kernels; a graph captured while a profiler recorded
+  the step's spans replays as many kernels as one captured without.
 
 It imports nothing of JAX, so on the card's machine it runs without the
 suite's conftest:
@@ -90,9 +95,10 @@ def _multidataset():
 # entry point, the spans it opens (name → count), the outer span that holds
 # every other, if any
 CASES = {
-    "train-run": (_train_run, {"ffvd::train.run": 1, "ffvd::train.read": 2},
-                  "ffvd::train.run"),
-    "train-replay": (_train_replay, {"ffvd::train.replay": 1}, None),
+    "train-run": (_train_run, {"ffvd::train.run": 1, "ffvd::train.read": 2,
+                               "ffvd::train.adam": 4}, "ffvd::train.run"),
+    "train-replay": (_train_replay, {"ffvd::train.replay": 1,
+                                     "ffvd::train.adam": 3}, None),
     "multichain-C4": (_multichain(4), {
         "ffvd::eval": 1, "ffvd::eval.prep": 1, "ffvd::eval.rollout": 1,
         "ffvd::eval.moments": 1}, "ffvd::eval"),
@@ -138,6 +144,35 @@ def test_spans_of_each_entry_point(case):
         np.testing.assert_array_equal(a, b)
 
 
+# case → the spans one outer step opens
+STEP_SPANS = {4: {"ffvd::train.adam": 1},
+              5: {"ffvd::train.sghmc": 1, "ffvd::train.adam": 1}}
+
+
+@pytest.mark.parametrize("case", sorted(STEP_SPANS))
+def test_outer_step_spans(case):
+    data, p0 = _ballbeam()
+    tr = Trainer(FFVDConfig(dataset="ballbeam", case=case), data)
+    plain = tr.outer_step(tr.init_state(p0), torch.Generator().manual_seed(3))
+    state = tr.init_state(p0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = tr.outer_step(state, torch.Generator().manual_seed(3))
+    assert collections.Counter(n for n, _, _ in _spans(prof)) == \
+        STEP_SPANS[case]
+    np.testing.assert_array_equal(plain.numpy(), traced.numpy())
+
+
+def test_outer_step_opens_no_range_without_a_profiler(monkeypatch):
+    made = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: made.append(name) or real(name))
+    data, p0 = _ballbeam()
+    tr = Trainer(FFVDConfig(dataset="ballbeam", case=5), data)
+    tr.outer_step(tr.init_state(p0), torch.Generator().manual_seed(3))
+    assert made == []
+
+
 def test_span_is_shared_null_context_without_a_profiler(monkeypatch):
     made = []
     real = torch.profiler.record_function
@@ -172,11 +207,40 @@ def test_captured_run_spans_on_the_card():
         tr.run(state, 6, chunk_size=3, capture=True)
         torch.cuda.synchronize()
     counts = collections.Counter(n for n, _, _ in _spans(prof))
+    # the step's own spans in the eager warm-ups and the capture only
     assert counts == {"ffvd::train.run": 1, "ffvd::train.replay": 2,
                       "ffvd::train.read": 2,
                       "ffvd::graph.warmup": graphs.WARMUP,
-                      "ffvd::graph.capture": 1}
+                      "ffvd::graph.capture": 1,
+                      "ffvd::train.adam": graphs.WARMUP + 1}
     on_card = [e for e in prof.events()
                if str(e.device_type).endswith("CUDA")
                and e.name.startswith("ffvd::")]
     assert all(getattr(e, "is_user_annotation", False) for e in on_card)
+
+
+@pytest.mark.cuda
+def test_step_spans_leave_the_replay_as_it_was():
+    """A C4 graph captured while a profiler recorded the step's spans, and
+    one captured with none, replay the same kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    data, p0 = _ballbeam("cuda", torch.float32)
+    kernels = []
+    for spans_on in (True, False):
+        tr = Trainer(FFVDConfig(dataset="ballbeam", case=4), data)
+        state = tr.init_state(p0)
+        if spans_on:
+            with profile(activities=[ProfilerActivity.CPU]):
+                tr.run(state, 4, capture=True)
+        else:
+            tr.run(state, 4, capture=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tr.run(state, 3, capture=True)
+            torch.cuda.synchronize()
+        kernels.append(sum(1 for e in prof.events()
+                           if str(e.device_type).endswith("CUDA")
+                           and not getattr(e, "is_user_annotation", False)))
+    assert kernels[0] == kernels[1] > 0
